@@ -4,17 +4,22 @@
   python3 chip_smoke.py
 
 Phases, each of which exits non-zero on a failed check:
-  1. the card's name and power limit; build the CUDA kernels from csrc/;
-  2. each kernel against its plain PyTorch version on the card, over the
-     JAX package's test shapes and the serving path's shapes, and timed
-     beside the plain version and a PyTorch library call;
-  3. the main path: full-width smollm-135m (random weights from a seed)
-     served by `ServeEngine`, 8 prompts of 512 tokens and 4 of 128, 32 new
-     tokens each; the kernel launch counts must show that every layer's
-     prefill attention went through the kernel;
-  4. last-position logits of one prompt prefilled through the kernel
-     against the same prompt half prefilled, half decoded token by token
-     through plain attention over the cache;
+  1. the card's name and power limit; build the CUDA kernels from csrc/,
+     one nvcc per source, all started together;
+  2. each kernel (flash attention, the SSD scan) against its plain PyTorch
+     version on the card, over the JAX package's test shapes and the
+     serving paths' shapes, and timed beside the plain version, its bound
+     and, where one exists, a PyTorch library call;
+  3. the attention path: full-width smollm-135m (random weights from a
+     seed) served by `ServeEngine`, 8 prompts of 512 tokens and 4 of 128,
+     32 new tokens each; the launch counts must show that every layer's
+     prefill attention went through the flash kernel;
+  3b. the Mamba path: full-width mamba2-1.3b served the same way; every
+     layer's prefill scan must go through the SSD kernel;
+  4. / 4b. for each model, last-position logits of one prompt prefilled
+     through the kernel against the same prompt half prefilled, half
+     decoded token by token through the plain decode path over the cache
+     (for mamba2-1.3b held in fp32 activations, printed in bf16);
   5. a JSON line of the kernels' numbers, then the result line.
 
 Needs a CUDA device and the repository's src/ beside this file.
@@ -29,6 +34,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -56,6 +62,20 @@ FLASH_CASES = [
     (8, 9, 3, 512, 512, 64, True, "bfloat16"),
 ]
 SLICE_SHAPE = (8, 9, 3, 512, 512, 64, True, "bfloat16")
+SSD_CASES = [
+    # (b, s, h, g, p, n, chunk, dtype): the JAX package's test sweep ...
+    (1, 128, 4, 1, 32, 32, 32, "float32"),
+    (2, 256, 8, 2, 64, 64, 64, "float32"),
+    (1, 512, 4, 4, 64, 128, 128, "float32"),
+    (1, 256, 4, 1, 64, 128, 256, "float32"),
+    (2, 256, 4, 1, 32, 64, 64, "bfloat16"),
+    # ... the serving path's two waves of mamba2-1.3b (the 128-token wave
+    # padded to one 256-row chunk), and two groups at the slice's widths.
+    (8, 512, 64, 1, 64, 128, 256, "bfloat16"),
+    (4, 256, 64, 1, 64, 128, 256, "bfloat16"),
+    (2, 512, 8, 2, 64, 128, 256, "bfloat16"),
+]
+SSD_SLICE_SHAPE = (8, 512, 64, 1, 64, 128, 256, "bfloat16")
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
 WHOLE_STACK_TOL = 0.15                         # tests/test_archs.py
 
@@ -150,7 +170,103 @@ def phase_kernels(torch, fa) -> dict:
     }
 
 
-def phase_serve(torch, np, fa, cfg, model, params) -> int:
+def ssd_inputs(torch, case, seed: int, initial: bool = True):
+    """x, dt_a, B, C and an entering state with the JAX tests' scales."""
+    b, s, h, g, p, n, _, dtype = case
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def make(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = make((b, s, h, p), 0.5).to(dt)
+    dt_a = -make((b, s, h), 0.3).abs()
+    bp, cp = make((b, s, g, n), 0.3).to(dt), make((b, s, g, n), 0.3).to(dt)
+    init = make((b, h, p, n), 0.2) if initial else None
+    return x, dt_a, bp, cp, init
+
+
+def ssd_close(torch, got, ref, tol: float):
+    err = (got.float() - ref.float()).abs()
+    return err.max().item(), bool((err <= tol + tol * ref.float().abs()).all())
+
+
+def phase_ssd_kernel(torch, ssd) -> dict:
+    worst = {}
+    for i, case in enumerate(SSD_CASES):
+        chunk, dtype = case[6], case[7]
+        for initial in (False, True):
+            x, dt_a, bp, cp, init = ssd_inputs(torch, case, seed=100 + i, initial=initial)
+            y, h = ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=chunk, initial_state=init)
+            y_ref, h_ref = ssd.ssd_scan_plain(x, dt_a, bp, cp, chunk=chunk, initial_state=init)
+            torch.cuda.synchronize()
+            if y.dtype != x.dtype or y.shape != x.shape or h.shape != h_ref.shape:
+                fail(f"ssd {case}: got y {y.dtype} {tuple(y.shape)}, state {tuple(h.shape)}")
+            tol = TOL[dtype]
+            (ey, oky), (eh, okh) = ssd_close(torch, y, y_ref, tol), ssd_close(torch, h, h_ref, tol)
+            print(f"ssd {case} {'initial' if initial else 'zero'} state: max|diff| y {ey:.3e}, "
+                  f"state {eh:.3e} (tol {tol}) {'ok' if oky and okh else 'FAIL'}")
+            if not (oky and okh):
+                fail(f"ssd kernel disagrees with its plain version at {case}")
+            worst[case] = max(worst.get(case, 0.0), ey, eh)
+
+    # Two halves through the kernel, the state carried, equal one pass.
+    x, dt_a, bp, cp, _ = ssd_inputs(torch, (1, 256, 4, 1, 32, 64, 64, "float32"), seed=7,
+                                    initial=False)
+    y_full, h_full = ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=64)
+    y1, h1 = ssd.ssd_scan_cuda(x[:, :128], dt_a[:, :128], bp[:, :128], cp[:, :128], chunk=64)
+    y2, h2 = ssd.ssd_scan_cuda(x[:, 128:], dt_a[:, 128:], bp[:, 128:], cp[:, 128:], chunk=64,
+                               initial_state=h1)
+    (ey, oky) = ssd_close(torch, torch.cat([y1, y2], dim=1), y_full, 1e-4)
+    (eh, okh) = ssd_close(torch, h2, h_full, 1e-4)
+    print(f"ssd continuation (two halves vs one pass): max|diff| y {ey:.3e}, state {eh:.3e} "
+          f"(tol 1e-4) {'ok' if oky and okh else 'FAIL'}")
+    if not (oky and okh):
+        fail("ssd kernel: two halves with the carried state differ from one pass")
+
+    b, s, h, g, p, n, q, dtype = SSD_SLICE_SHAPE
+    x, dt_a, bp, cp, init = ssd_inputs(torch, SSD_SLICE_SHAPE, seed=1)
+    elem = x.element_size()
+    # x and y, B and C in x's dtype; dt_a, the entering and final state fp32.
+    nbytes = (2 * x.numel() + bp.numel() + cp.numel()) * elem + dt_a.numel() * 4 \
+        + 2 * init.numel() * 4
+    flops = b * h * (s // q) * (2 * (q * (q + 1) // 2) * (n + p) + 4 * q * n * p)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS_S[str(x.dtype)]
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    ms = cuda_ms(torch, lambda: ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=q, initial_state=init))
+    plain_ms = cuda_ms(torch, lambda: ssd.ssd_scan_plain(x, dt_a, bp, cp, chunk=q,
+                                                         initial_state=init), reps=5, inner=2)
+    ms2 = cuda_ms(torch, lambda: ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=q, initial_state=init))
+    print(f"ssd at {SSD_SLICE_SHAPE}: kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP); library call: none (no single PyTorch call "
+          f"computes this scan)")
+    wave2 = SSD_CASES[SSD_CASES.index(SSD_SLICE_SHAPE) + 1]
+    x, dt_a, bp, cp, init = ssd_inputs(torch, wave2, seed=2)
+    ms_wave2 = cuda_ms(torch, lambda: ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=q,
+                                                        initial_state=init))
+    print(f"ssd at {wave2} (the padded 128-token wave): kernel {ms_wave2:.4f} ms")
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:35",
+        "max_abs_err": worst[SSD_SLICE_SHAPE],
+        "ms": statistics.median([ms, ms2]),
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def phase_serve(torch, np, cfg, model, params, kernels: dict, path: str) -> int:
+    """Serve the fixed traffic through `ServeEngine`. Every kernel's count is
+    set to 0 just before the run and read just after: the kernel named
+    `path` must have launched once per layer per wave, the others never.
+    Returns `path`'s launches."""
     from repro_torch.serve import Request, ServeEngine
 
     class Engine(ServeEngine):
@@ -175,58 +291,94 @@ def phase_serve(torch, np, fa, cfg, model, params) -> int:
         engine.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                               max_new_tokens=32))
     torch.cuda.synchronize()
-    fa.launches = 0
+    for mod in kernels.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = fa.launches
+    counts = {name: mod.launches for name, mod in kernels.items()}
     st = engine.stats
     want = cfg.num_layers * st.waves
-    print(f"serve: {st.requests} requests in {st.waves} waves, {st.generated_tokens} tokens, "
-          f"{st.decode_steps} decode steps, wall {wall:.3f}s")
-    print(f"serve: prefill {st.prefill_tokens / st.prefill_s:.1f} tok/s "
+    print(f"serve {cfg.name}: {st.requests} requests in {st.waves} waves, "
+          f"{st.generated_tokens} tokens, {st.decode_steps} decode steps, wall {wall:.3f}s")
+    print(f"serve {cfg.name}: prefill {st.prefill_tokens / st.prefill_s:.1f} tok/s "
           f"({st.prefill_tokens} tokens in {st.prefill_s:.4f}s), decode "
           f"{(st.generated_tokens - st.requests) / st.decode_s:.1f} tok/s "
           f"({st.generated_tokens - st.requests} tokens in {st.decode_s:.4f}s)")
-    print(f"serve: flash kernel launches {launched} (want {cfg.num_layers} layers x "
-          f"{st.waves} waves = {want})")
+    print(f"serve {cfg.name}: kernel launches {counts} (want {path}: {cfg.num_layers} layers x "
+          f"{st.waves} waves = {want}, every other kernel 0)")
     if st.waves != 2 or len(results) != len(lens):
         fail(f"want 2 waves and {len(lens)} results, got {st.waves} and {len(results)}")
-    if launched != want:
-        fail(f"flash kernel launched {launched} times, want {want}")
+    if counts != {name: want if name == path else 0 for name in kernels}:
+        fail(f"{cfg.name}: kernel launches {counts}; want {path} {want}, every other 0")
     for r in results:
         if len(r.tokens) != 32 or r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
             fail(f"request {r.rid}: {len(r.tokens)} tokens, ids outside [0, vocab)")
     nonfinite = int(engine.nonfinite)
     if nonfinite:
         fail(f"{nonfinite} non-finite logits during serving")
-    return launched
+    return counts[path]
 
 
-def phase_prefill_vs_decode(torch, np, fa, cfg, model, params) -> None:
+def prefill_vs_decode(torch, np, kernel, cfg, model, params):
+    """Last-position logits of one 32-token prompt prefilled through the
+    kernel, and of its first 16 tokens prefilled (through the kernel too)
+    then 16 decoded token by token over the cache. Returns both, fp32."""
     from repro_torch.models import lm as LM
 
     rng = np.random.default_rng(1)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 32))).cuda()
-    before = fa.launches
+    before = kernel.launches
     full, _ = model.prefill(params, {"inputs": ids})
-    if fa.launches - before != cfg.num_layers:
-        fail(f"prefill launched the kernel {fa.launches - before} times, "
+    if kernel.launches - before != cfg.num_layers:
+        fail(f"{cfg.name}: prefill launched the kernel {kernel.launches - before} times, "
              f"want {cfg.num_layers}")
     logits, caches = LM.lm_prefill(params, cfg, ids[:, :16], max_len=32)
     for t in range(16, 32):
         logits, caches = model.decode_step(params, ids[:, t:t + 1], caches, t)
     v = cfg.vocab_size
-    a, b = full[:, :v].float(), logits[:, :v].float()
+    return full[:, :v].float(), logits[:, :v].float()
+
+
+def check_close(torch, cfg, a, b, tol: float, what: str) -> None:
     err = (a - b).abs()
-    ok = bool(torch.isfinite(a).all()) and bool(
-        (err <= WHOLE_STACK_TOL + WHOLE_STACK_TOL * b.abs()).all())
-    print(f"prefill-through-kernel vs token-by-token decode: max|diff| "
-          f"{err.max().item():.3e} (tol {WHOLE_STACK_TOL}), argmax "
-          f"{int(a.argmax())} vs {int(b.argmax())}")
+    ok = bool(torch.isfinite(a).all()) and bool((err <= tol + tol * b.abs()).all())
+    print(f"{cfg.name}: prefill-through-kernel vs token-by-token decode{what}: max|diff| "
+          f"{err.max().item():.3e} (tol {tol}), argmax {int(a.argmax())} vs {int(b.argmax())}")
     if not ok:
-        fail("prefill through the kernel disagrees with plain decode over the cache")
+        fail(f"{cfg.name}: prefill through the kernel disagrees with plain decode over the "
+             f"cache{what}")
+
+
+def phase_prefill_vs_decode(torch, np, kernel, cfg, model, params) -> None:
+    check_close(torch, cfg, *prefill_vs_decode(torch, np, kernel, cfg, model, params),
+                WHOLE_STACK_TOL, "")
+
+
+def phase_mamba_prefill_vs_decode(torch, np, kernel, cfg, model, params) -> None:
+    """The Mamba model's check, which shows that decode continues from the
+    scan kernel's final state. In bf16, the serving dtype, the two paths
+    round differently at every layer, and over 48 layers of random weights
+    that spread exceeds the whole-stack tolerance whatever computes the
+    scan, so the bf16 numbers are printed only. With the activations in
+    fp32 (`layers.COMPUTE_DTYPE`) the paths differ only in the scan's
+    arithmetic, and they are held to the fp32 kernel tolerance."""
+    from repro_torch.models import layers as L
+
+    a, b = prefill_vs_decode(torch, np, kernel, cfg, model, params)
+    err = (a - b).abs()
+    print(f"{cfg.name}: prefill-through-kernel vs token-by-token decode, bf16 activations: "
+          f"max|diff| {err.max().item():.3e}, argmax {int(a.argmax())} vs {int(b.argmax())} "
+          f"(printed only)")
+    if not bool(torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail(f"{cfg.name}: non-finite logits in the prefill-vs-decode check")
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        a, b = prefill_vs_decode(torch, np, kernel, cfg, model, params)
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    check_close(torch, cfg, a, b, TOL["float32"], ", fp32 activations")
 
 
 def main() -> None:
@@ -240,6 +392,7 @@ def main() -> None:
              f"(set CUDA_VISIBLE_DEVICES to one card)")
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import make_model
 
     smi = subprocess.run(
@@ -253,28 +406,52 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    fa._library()
-    print(f"build: flash_attention in {time.perf_counter() - t0:.1f}s")
-    ptxas = os.path.join(ROOT, "build", "flash_attention.ptxas.txt")
-    if os.path.exists(ptxas):
-        with open(ptxas) as f:
-            for line in f:
-                if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
-                    print("ptxas:", line.strip())
+    # One nvcc per source, all started together.
+    kernels = {"flash_attention": fa, "ssd_scan": ssd}
 
-    kernel = phase_kernels(torch, fa)
+    def timed_build(mod) -> float:
+        t = time.perf_counter()
+        mod._library()
+        return time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        builds = {name: pool.submit(timed_build, mod) for name, mod in kernels.items()}
+        built = {name: f.result() for name, f in builds.items()}
+    print(f"build: {', '.join(f'{n} in {t:.1f}s' for n, t in built.items())}; "
+          f"{time.perf_counter() - t0:.1f}s in all")
+    for name in kernels:
+        ptxas = os.path.join(ROOT, "build", f"{name}.ptxas.txt")
+        if os.path.exists(ptxas):
+            with open(ptxas) as f:
+                for line in f:
+                    if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+                        print(f"ptxas {name}:", line.strip())
+
+    flash = phase_kernels(torch, fa)
+    scan = phase_ssd_kernel(torch, ssd)
 
     cfg = get_config("smollm-135m")
     model = make_model(cfg)
     params = model.init(0, device="cuda")
-    kernel["launches"] = phase_serve(torch, np, fa, cfg, model, params)
+    flash["launches"] = phase_serve(torch, np, cfg, model, params, kernels, "flash_attention")
     phase_prefill_vs_decode(torch, np, fa, cfg, model, params)
+    del params
 
-    for key, val in kernel.items():
-        if isinstance(val, float) and not math.isfinite(val):
-            fail(f"kernel number {key} is not finite")
-    print(json.dumps({"kernels": [kernel]}))
+    cfg = get_config("mamba2-1.3b")
+    model = make_model(cfg)
+    params = model.init(0, device="cuda")
+    print(f"{cfg.name}: {model.param_count() / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    scan["launches"] = phase_serve(torch, np, cfg, model, params, kernels, "ssd_scan")
+    phase_mamba_prefill_vs_decode(torch, np, ssd, cfg, model, params)
+
+    rows = [flash, scan]
+    for row in rows:
+        for key, val in row.items():
+            if isinstance(val, float) and not math.isfinite(val):
+                fail(f"{row['name']}: kernel number {key} is not finite")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
-"""Serving driver: batched prefill + greedy or sampled decode with KV
-caches, on the GPU by default.
+"""Serving driver: batched prefill + greedy or sampled decode with decode
+caches (attention KV caches, Mamba conv/SSM states), on the GPU by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full \
+      --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full \
       --batch 8 --prompt-len 512 --gen 32
 
 Weights come from the port's own seeded init. Restoring them from an

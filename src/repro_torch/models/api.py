@@ -1,10 +1,12 @@
 """Model facade: one object per architecture config exposing
 spec/init/prefill/decode, as the JAX package's ``models/api.py`` does, for
-decoder-only configs of the ``(attn, dense)`` pattern.
+decoder-only configs of the ``(attn, dense)`` pattern and Mamba-2 configs
+(``(mamba, -)``, e.g. ``mamba2-1.3b``).
 
 Parameters are nested dicts of tensors with the JAX tree's paths and
-shapes (``layers.block0.attn.wq`` is (periods, d, Hq, D_h)), so a JAX
-parameter tree carries across as a copy with no transposes.
+shapes (``layers.block0.attn.wq`` is (periods, d, Hq, D_h),
+``layers.block0.mamba.w_x`` is (periods, d, d_inner)), so a JAX parameter
+tree carries across as a copy with no transposes.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ class Model:
     def make_decode_caches(self, batch: int, seq_len: int, *, filled: bool,
                            device="cuda"):
         """Decode caches; `filled` marks seq_len-1 positions valid (one new
-        token against a seq_len cache)."""
+        token against a seq_len cache). A Mamba block's cache is its conv and
+        SSM state, of one size whatever `seq_len` and `filled` are."""
         length = seq_len - 1 if filled else 0
         return LM.make_stack_cache(self.cfg, batch, seq_len, device=device,
                                    length=length)

@@ -4,8 +4,9 @@ The port of the JAX package's ``models/layers.py``, dense parts, with its
 layouts: activations are (B, S, H, D_h), ``wq`` is (d, Hq, D_h) and ``wo``
 is (Hq, D_h, d). Matmuls run in bf16 on fp32 parameters cast at use, with
 fp32 norm, softmax and score accumulation. Prefill attention (a query block
-at position 0 against an empty or absent cache) goes through the flash
-kernel; every other case through the plain `_attn_core`.
+at position 0 against an empty or absent cache) goes through
+`ops.flash_attention` (the flash kernel for CUDA tensors); every other case
+through the plain `_attn_core`. The Mamba mixer is in ``models/ssd.py``.
 """
 
 from __future__ import annotations

@@ -1,29 +1,34 @@
-"""Decoder-only LM backbone for the ``(attn, dense)`` block pattern.
+"""Decoder-only LM backbone for the ``(attn, dense)`` and ``(mamba, -)``
+block patterns.
 
 The port of the JAX package's ``models/lm.py``. The layer stack is
 `cfg.periods` repetitions of the config's block pattern with parameters
 stacked on a leading periods axis; `stack_fwd` walks that axis in a Python
-loop. Decode caches are stacked the same way and updated in place. The
-mamba, MoE and cross-attention branches are not ported yet and raise.
+loop. Decode caches (attention KV caches and Mamba conv/SSM states) are
+stacked the same way and updated in place. The MoE, cross-attention and
+encoder-decoder branches are not ported yet and raise.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssd as S
 from repro_torch.models.spec import stacked
 
 NEG_INF = -1e30
 
 
 def _check_block(cfg: ModelConfig, bd: BlockDef) -> None:
-    if bd.mixer != "attn" or bd.ffn not in ("dense", None) or bd.cross_attn \
-            or cfg.is_encdec:
+    if bd.mixer not in ("attn", "mamba") or bd.ffn not in ("dense", None) \
+            or bd.cross_attn or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: block {bd} is not ported yet; the port covers the "
-            f"(attn, dense) pattern")
+            f"{cfg.name}: block {bd} is not ported yet; the port covers attention "
+            f"and Mamba mixers with a dense FFN or none")
 
 
 # --------------------------------------------------------------------------- #
@@ -31,7 +36,11 @@ def _check_block(cfg: ModelConfig, bd: BlockDef) -> None:
 # --------------------------------------------------------------------------- #
 def block_spec(cfg: ModelConfig, bd: BlockDef) -> dict:
     _check_block(cfg, bd)
-    spec: dict = {"norm1": L.norm_spec(cfg), "attn": L.attention_spec(cfg)}
+    spec: dict = {"norm1": L.norm_spec(cfg)}
+    if bd.mixer == "attn":
+        spec["attn"] = L.attention_spec(cfg)
+    else:
+        spec["mamba"] = S.mamba_spec(cfg)
     if bd.ffn is not None and not cfg.parallel_block:
         spec["norm2"] = L.norm_spec(cfg)
     if bd.ffn == "dense":
@@ -42,7 +51,9 @@ def block_spec(cfg: ModelConfig, bd: BlockDef) -> dict:
 def make_block_cache(cfg: ModelConfig, bd: BlockDef, batch: int, max_len: int,
                      *, device, length: int = 0) -> dict:
     _check_block(cfg, bd)
-    return {"attn": L.make_cache(cfg, batch, max_len, device=device, length=length)}
+    if bd.mixer == "attn":
+        return {"attn": L.make_cache(cfg, batch, max_len, device=device, length=length)}
+    return {"mamba": S.make_mamba_cache(cfg, batch, device=device)}
 
 
 def block_fwd(
@@ -62,15 +73,24 @@ def block_fwd(
     rm = torch.tensor(cfg.residual_multiplier, dtype=x.dtype)
 
     h = L.apply_norm(p["norm1"], cfg, x)
-    attn_out, kv = L.attention(
-        p["attn"], cfg, h,
-        start=start,
-        cache=None if cache is None else cache.get("attn"),
-        update_cache=update_cache,
-        q_chunk=q_chunk,
-    )
-    if kv is not None:
-        new_cache["attn"] = kv
+    if bd.mixer == "attn":
+        attn_out, kv = L.attention(
+            p["attn"], cfg, h,
+            start=start,
+            cache=None if cache is None else cache.get("attn"),
+            update_cache=update_cache,
+            q_chunk=q_chunk,
+        )
+        if kv is not None:
+            new_cache["attn"] = kv
+    else:
+        attn_out, mc = S.mamba_block(
+            p["mamba"], cfg, h,
+            cache=None if cache is None else cache.get("mamba"),
+            update_cache=update_cache,
+        )
+        if mc is not None:
+            new_cache["mamba"] = mc
 
     if cfg.parallel_block and bd.ffn is not None:
         # Cohere: attn and FFN both read the same normed input.
@@ -92,19 +112,28 @@ def stack_spec(cfg: ModelConfig) -> dict:
     return stacked(cfg.periods, period)
 
 
+def _tensor_fields(cache) -> dict:
+    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)
+            if isinstance(getattr(cache, f.name), torch.Tensor)}
+
+
+def _host_fields(cache) -> dict:
+    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)
+            if not isinstance(getattr(cache, f.name), torch.Tensor)}
+
+
 def make_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                      length: int = 0) -> dict:
-    """One cache per block of the pattern, its buffers stacked over periods:
-    k/v are (periods, B, max_len, H_kv, D_h)."""
+    """One cache per block of the pattern (a `KVCache` or a `MambaCache`),
+    its buffers stacked over periods: k/v are (periods, B, max_len, H_kv,
+    D_h), the Mamba ssm state (periods, B, H, P, N)."""
     out = {}
     for i, bd in enumerate(cfg.pattern):
         one = make_block_cache(cfg, bd, batch, max_len, device=device, length=length)
         out[f"block{i}"] = {
-            name: L.KVCache(
-                k=c.k.unsqueeze(0).repeat(cfg.periods, *([1] * c.k.ndim)),
-                v=c.v.unsqueeze(0).repeat(cfg.periods, *([1] * c.v.ndim)),
-                length=c.length,
-            )
+            name: dataclasses.replace(c, **{
+                k: t.unsqueeze(0).repeat(cfg.periods, *([1] * t.ndim))
+                for k, t in _tensor_fields(c).items()})
             for name, c in one.items()
         }
     return out
@@ -127,14 +156,15 @@ def stack_fwd(
 ) -> tuple[torch.Tensor, dict | None]:
     """Run the periods in order over the residual stream. Each period's
     cache is a view into the stacked buffers, so the blocks' in-place
-    appends land there directly. Returns (x, new_caches)."""
-    lengths: dict = {}
+    updates land there directly; host-side fields (the KV length) are
+    taken from the last period's cache. Returns (x, new_caches)."""
+    host: dict = {}
     for idx in range(cfg.periods):
         pp = _index(p_stack, idx)
         for i, bd in enumerate(cfg.pattern):
             name = f"block{i}"
             pc = None if caches is None else {
-                key: L.KVCache(c.k[idx], c.v[idx], c.length)
+                key: dataclasses.replace(c, **{k: t[idx] for k, t in _tensor_fields(c).items()})
                 for key, c in caches[name].items()
             }
             x, nc = block_fwd(
@@ -144,11 +174,11 @@ def stack_fwd(
                 update_cache=update_cache,
                 q_chunk=q_chunk,
             )
-            lengths[name] = {key: c.length for key, c in nc.items()}
+            host[name] = {key: _host_fields(c) for key, c in nc.items()}
     if caches is None:
         return x, None
     return x, {
-        name: {key: L.KVCache(c.k, c.v, lengths[name][key]) for key, c in blk.items()}
+        name: {key: dataclasses.replace(c, **host[name][key]) for key, c in blk.items()}
         for name, blk in caches.items()
     }
 

@@ -59,6 +59,20 @@ def _materialize(spec: ParamSpec, gen: torch.Generator, dtype: torch.dtype,
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if kind == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+
+    def uniform(lo: float, hi: float) -> torch.Tensor:
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32, device=device)
+        return u * (hi - lo) + lo
+
+    if kind == "uniform":
+        return uniform(spec.init[1], spec.init[2]).to(dtype)
+    if kind == "a_log":
+        # Mamba-2 A initialization: A = -exp(a_log), a_log = log(U[1,16]).
+        return torch.log(uniform(1.0, 16.0)).to(dtype)
+    if kind == "dt_bias":
+        # dt bias such that softplus(dt_bias) ~ log-uniform on [1e-3, 0.1].
+        dt = torch.exp(uniform(math.log(1e-3), math.log(0.1)))
+        return torch.log(torch.expm1(dt)).to(dtype)
     if kind == "normal":
         std = spec.init[1]
     elif kind == "fan_in":

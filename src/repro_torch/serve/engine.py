@@ -4,7 +4,8 @@ decode waves with early retirement. The port of the JAX package's
 
 Each wave admits up to `max_batch` queued requests of the SAME prompt
 length (length-bucketed: padding would let real tokens attend to garbage),
-prefills them together through the flash kernel, then decodes step by
+prefills them together (on the card, attention layers through the flash
+kernel and Mamba layers through the SSD scan kernel), then decodes step by
 step. Finished sequences (EOS or their own token budget) are masked out;
 the wave retires when every member finishes, and the queue refills the
 next wave. Greedy argmax and retirement run on the host, from one copy of

@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import lm as LM
 from repro_torch.models import make_model
 
@@ -121,5 +122,129 @@ def test_prefill_launches_once_per_layer_and_decode_never(cuda):
     for t in range(16, 24):
         logits, caches = model.decode_step(params, ids[:, t:t + 1], caches, t)
     assert fa.launches == 2 * cfg.num_layers
+    torch.testing.assert_close(logits[:, : cfg.vocab_size], full[:, : cfg.vocab_size],
+                               rtol=0.15, atol=0.15)
+
+
+# --------------------------------------------------------------------------- #
+# SSD scan
+# --------------------------------------------------------------------------- #
+SSD_CASES = [
+    # (b, s, h, g, p, n, chunk, dtype): tests/test_kernels.py's sweep ...
+    (1, 128, 4, 1, 32, 32, 32, torch.float32),
+    (2, 256, 8, 2, 64, 64, 64, torch.float32),
+    (1, 512, 4, 4, 64, 128, 128, torch.float32),
+    (1, 256, 4, 1, 64, 128, 256, torch.float32),
+    (2, 256, 4, 1, 32, 64, 64, torch.bfloat16),
+    # ... plus the two serving waves of mamba2-1.3b (the 128-token wave is
+    # padded to one 256-row chunk), two groups, the reduced config's sizes,
+    # a chunk that is not a multiple of the 64-row tile, and P = 128.
+    (8, 512, 64, 1, 64, 128, 256, torch.bfloat16),
+    (4, 256, 64, 1, 64, 128, 256, torch.bfloat16),
+    (2, 512, 8, 2, 64, 128, 256, torch.bfloat16),
+    (2, 64, 8, 1, 16, 16, 32, torch.bfloat16),
+    (1, 200, 4, 2, 32, 64, 100, torch.float32),
+    (1, 128, 2, 1, 128, 128, 128, torch.float32),
+]
+
+
+def _ssd_inputs(case, seed, device, initial=False):
+    """Seeded inputs with tests/test_kernels.py's scales."""
+    b, s, h, g, p, n, _, dtype = case
+    rng = np.random.default_rng(seed)
+
+    def make(shape, scale, dt=dtype):
+        a = rng.standard_normal(shape, dtype=np.float32) * scale
+        return torch.from_numpy(a).to(device, dt)
+
+    x = make((b, s, h, p), 0.5)
+    dt_a = -make((b, s, h), 0.3, torch.float32).abs()
+    bp, cp = make((b, s, g, n), 0.3), make((b, s, g, n), 0.3)
+    init = make((b, h, p, n), 0.2, torch.float32) if initial else None
+    return x, dt_a, bp, cp, init
+
+
+@pytest.mark.parametrize("initial", [False, True], ids=["zero-state", "initial-state"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=[str(c[:7]) for c in SSD_CASES])
+def test_ssd_kernel_matches_plain(cuda, case, initial):
+    x, dt_a, bp, cp, init = _ssd_inputs(case, 0, cuda, initial)
+    chunk = case[6]
+    y, h = ops.ssd_scan(x, dt_a, bp, cp, chunk=chunk, initial_state=init)
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt_a, bp, cp, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert h.dtype == torch.float32 and h.shape == h_ref.shape
+    tol = _tol(case[7])
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_ref, rtol=tol, atol=tol)
+
+
+def test_ssd_kernel_initial_state_continuation(cuda):
+    """Two halves through the kernel, the state carried, equal one pass."""
+    x, dt_a, bp, cp, _ = _ssd_inputs((1, 256, 4, 1, 32, 64, 64, torch.float32), 1, cuda)
+    y_full, h_full = ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=64)
+    y1, h1 = ssd.ssd_scan_cuda(x[:, :128], dt_a[:, :128], bp[:, :128], cp[:, :128], chunk=64)
+    y2, h2 = ssd.ssd_scan_cuda(x[:, 128:], dt_a[:, 128:], bp[:, 128:], cp[:, 128:], chunk=64,
+                               initial_state=h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y_full, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h2, h_full, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_takes_strided_views(cuda):
+    """x, B and C as views with a unit last stride but no other contiguity,
+    and the state of one period of a stacked cache."""
+    x, dt_a, bp, cp, init = _ssd_inputs((2, 128, 4, 1, 32, 32, 64, torch.float32), 2, cuda,
+                                        initial=True)
+    wide = torch.zeros((2, 128, 8, 32), device=cuda)
+    wide[:, :, ::2] = x
+    stacked = torch.stack([init, init * 0.5])
+    y, h = ssd.ssd_scan_cuda(wide[:, :, ::2], dt_a, bp, cp, chunk=64, initial_state=stacked[1])
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt_a, bp, cp, chunk=64, initial_state=init * 0.5)
+    torch.testing.assert_close(y, y_ref, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(h, h_ref, rtol=2e-3, atol=2e-3)
+
+
+def test_ssd_launch_counter_counts_launches_only(cuda):
+    x, dt_a, bp, cp, _ = _ssd_inputs((1, 64, 2, 1, 16, 16, 32, torch.bfloat16), 3, cuda)
+    ssd.launches = 0
+    ops.ssd_scan(x, dt_a, bp, cp, chunk=32)
+    ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=32)
+    ssd.ssd_scan_plain(x, dt_a, bp, cp, chunk=32)
+    with pytest.raises(ValueError):
+        ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=48)
+    assert ssd.launches == 2
+
+
+def test_ssd_rejects_what_the_kernel_does_not_take(cuda):
+    x, dt_a, bp, cp, _ = _ssd_inputs((1, 64, 2, 1, 32, 16, 32, torch.float32), 4, cuda)
+    with pytest.raises(ValueError, match="dtype of x"):
+        ops.ssd_scan(x.half(), dt_a, bp.half(), cp.half())
+    with pytest.raises(ValueError, match="dtype of x"):
+        ops.ssd_scan(x, dt_a, bp.bfloat16(), cp)
+    with pytest.raises(ValueError, match="dtype of dt_a"):
+        ops.ssd_scan(x, dt_a.double(), bp, cp)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.ssd_scan(x, dt_a, bp, cp, chunk=48)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.ssd_scan(x, dt_a.cpu(), bp, cp)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt_a, bp, cp)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.ssd_scan(x[..., :24], dt_a, bp, cp)
+
+
+def test_mamba_prefill_launches_once_per_layer_and_decode_never(cuda):
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2)
+    model = make_model(cfg)
+    params = model.init(0, device=cuda)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 24))).to(cuda)
+    ssd.launches = 0
+    fa.launches = 0
+    full, _ = model.prefill(params, {"inputs": ids})
+    assert ssd.launches == cfg.num_layers
+    logits, caches = LM.lm_prefill(params, cfg, ids[:, :16])
+    for t in range(16, 24):
+        logits, caches = model.decode_step(params, ids[:, t:t + 1], caches, t)
+    assert ssd.launches == 2 * cfg.num_layers and fa.launches == 0
     torch.testing.assert_close(logits[:, : cfg.vocab_size], full[:, : cfg.vocab_size],
                                rtol=0.15, atol=0.15)

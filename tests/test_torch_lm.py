@@ -29,7 +29,9 @@ TOL = 0.15          # whole-stack bf16 tolerance, tests/test_archs.py
 MARGIN = 0.3        # compare argmax only where JAX's top-2 margin exceeds this
 DENSE = sorted(n for n, c in jax_all_configs().items()
                if c.pattern == (BlockDef("attn", "dense"),) and not c.is_encdec)
-OTHER = sorted(set(jax_all_configs()) - set(DENSE))
+PORTED = DENSE + ["mamba2-1.3b"]
+OTHER = sorted(set(jax_all_configs()) - set(PORTED))
+MAMBA_LEAVES = ("conv_x", "conv_b", "conv_c", "ssm")
 
 
 def _cfgs(name: str, reduced: bool = True, **changes):
@@ -67,13 +69,7 @@ def _check_prefill_and_decode(jcfg, cfg, seed: int, b: int = 2, s: int = 16,
     assert tl.shape == (b, cfg.padded_vocab()) and tl.dtype == torch.float32
     assert bool((tl[:, v:] == LM.NEG_INF).all())
     _close(tl[:, :v], np.asarray(jl)[:, :v], err_msg="prefill logits")
-    for name, blk in tc.items():
-        want = jc[name]["attn"]
-        got = blk["attn"]
-        assert got.k.shape == want.k.shape
-        assert got.length == s and (np.asarray(want.length) == s).all()
-        _close(got.k, want.k, err_msg=f"{name} k cache")
-        _close(got.v, want.v, err_msg=f"{name} v cache")
+    _compare_caches(tc, jc, s)
 
     for t in range(s, s + steps):
         jlog = np.asarray(jl)[:, :v]
@@ -89,16 +85,44 @@ def _check_prefill_and_decode(jcfg, cfg, seed: int, b: int = 2, s: int = 16,
         jl, jc = JLM.lm_decode_step(params, jcfg, jstep, jc, t)
         tl, tc = LM.lm_decode_step(tparams, cfg, tstep, tc, t)
         _close(tl[:, :v], np.asarray(jl)[:, :v], err_msg=f"decode step {t}")
-    assert all(blk["attn"].length == s + steps for blk in tc.values())
+    _compare_caches(tc, jc, s + steps)
 
 
-@pytest.mark.parametrize("name", DENSE)
+def _compare_caches(tc: dict, jc: dict, length: int) -> None:
+    """Every block's stacked cache, leaf by leaf: attention k/v and length,
+    or the Mamba conv and SSM states."""
+    for name, blk in tc.items():
+        assert set(blk) == set(jc[name])
+        if "attn" in blk:
+            want, got = jc[name]["attn"], blk["attn"]
+            assert got.k.shape == want.k.shape
+            assert got.length == length and (np.asarray(want.length) == length).all()
+            _close(got.k, want.k, err_msg=f"{name} k cache")
+            _close(got.v, want.v, err_msg=f"{name} v cache")
+        if "mamba" in blk:
+            want, got = jc[name]["mamba"], blk["mamba"]
+            for leaf in MAMBA_LEAVES:
+                g, w = getattr(got, leaf), getattr(want, leaf)
+                assert tuple(g.shape) == w.shape, (name, leaf)
+                assert str(g.dtype).removeprefix("torch.") == np.dtype(w.dtype).name
+                _close(g, w, err_msg=f"{name} {leaf} cache")
+
+
+@pytest.mark.parametrize("name", PORTED)
 def test_reduced_prefill_and_decode_match_jax(name):
     _check_prefill_and_decode(*_cfgs(name), seed=0)
 
 
 def test_full_width_smollm_two_layers_matches_jax():
     _check_prefill_and_decode(*_cfgs("smollm-135m", reduced=False, num_layers=2), seed=1)
+
+
+def test_full_width_mamba2_two_layers_matches_jax():
+    """mamba2-1.3b at its published widths (d_model 2048, 64 heads of 64,
+    state 128, chunk 256), two layers, one 16-token prompt padded to a
+    chunk, then decode steps from the scan's final state."""
+    _check_prefill_and_decode(*_cfgs("mamba2-1.3b", reduced=False, num_layers=2), seed=2,
+                              b=1, s=16, steps=2)
 
 
 def test_incremental_decode_matches_full_forward():
@@ -117,6 +141,23 @@ def test_incremental_decode_matches_full_forward():
         torch.testing.assert_close(logits, ref[:, t], rtol=TOL, atol=TOL)
 
 
+def test_incremental_decode_matches_full_forward_mamba():
+    """Full forward (the chunked scan, no cache) against a prefill of 12
+    tokens and one-token decode steps from its conv and SSM states, within
+    the port alone, across a chunk boundary of the reduced config (32)."""
+    cfg = get_config("mamba2-1.3b").reduced()
+    model = make_model(cfg)
+    params = model.init(3, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40)))
+    h, _ = LM.lm_hidden(params, cfg, ids)
+    ref = LM.logits_from_hidden(params, cfg, h)
+    logits, caches = LM.lm_prefill(params, cfg, ids[:, :12])
+    torch.testing.assert_close(logits, ref[:, 11], rtol=TOL, atol=TOL)
+    for t in range(12, 40):
+        logits, caches = model.decode_step(params, ids[:, t:t + 1], caches, t)
+        torch.testing.assert_close(logits, ref[:, t], rtol=TOL, atol=TOL)
+
+
 def _jax_spec_leaves(spec) -> dict:
     leaves = jax.tree_util.tree_flatten_with_path(
         spec, is_leaf=lambda x: isinstance(x, JaxParamSpec))[0]
@@ -124,7 +165,7 @@ def _jax_spec_leaves(spec) -> dict:
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_spec_matches_jax(name, reduced):
     jcfg, cfg = _cfgs(name, reduced=reduced)
     want = _jax_spec_leaves(jax_make_model(jcfg).spec())
@@ -152,6 +193,16 @@ def test_decode_helpers_match_jax():
     assert got.k.shape == want.k.shape and got.k.dtype == torch.bfloat16
     assert got.length == 7 and (np.asarray(want.length) == 7).all()
     assert tuple(m.decode_inputs(2, device="cpu").shape) == jm.decode_inputs(2).shape
+
+
+def test_mamba_decode_helpers_match_jax():
+    jcfg, cfg = _cfgs("mamba2-1.3b")
+    want = jax_make_model(jcfg).make_decode_caches(2, 8, filled=True)["block0"]["mamba"]
+    got = make_model(cfg).make_decode_caches(2, 8, filled=True, device="cpu")["block0"]["mamba"]
+    for leaf in MAMBA_LEAVES:
+        g, w = getattr(got, leaf), getattr(want, leaf)
+        assert tuple(g.shape) == w.shape and not g.any(), leaf
+        assert str(g.dtype).removeprefix("torch.") == np.dtype(w.dtype).name, leaf
 
 
 def test_init_is_seeded_per_path():

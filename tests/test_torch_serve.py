@@ -16,6 +16,7 @@ from repro.models import make_model as jax_make_model
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import serve as serve_main
 from repro_torch.models import lm as LM
 from repro_torch.models import make_model
@@ -105,17 +106,17 @@ def _shared_weights(cfg, seed: int) -> dict:
     return to_numpy(make_model(cfg).init(seed, device="cpu"))
 
 
-def test_engine_matches_jax_engine(monkeypatch):
+def _check_engine_matches_jax(monkeypatch, name: str, seed: int = 0) -> None:
     """The port's engine and the JAX package's serve one queue on one set of
     weights, carried to each side from numpy: several waves, mixed prompt
     lengths and budgets, one request that stops at EOS. While a row's greedy
     tokens agree, every step's logits agree within TOL (so both decode at the
     same positions), tokens agree wherever JAX's top-2 margin is clear, and
     the stats agree."""
-    jcfg = jax_get_config("smollm-135m").reduced()
-    cfg = get_config("smollm-135m").reduced()
+    jcfg = jax_get_config(name).reduced()
+    cfg = get_config(name).reduced()
     jmodel = jax_make_model(jcfg)
-    weights = _shared_weights(cfg, seed=0)
+    weights = _shared_weights(cfg, seed=seed)
     jparams = jax.tree.map(jnp.asarray, weights)
     params = params_from_numpy(weights, "cpu")
     rng = np.random.default_rng(PROMPT_SEED)
@@ -168,6 +169,18 @@ def test_engine_matches_jax_engine(monkeypatch):
     assert clear > 0
     eos_result = next(r for r in tres if r.rid == EOS_RID)
     assert eos_result.tokens.tolist() == [eos]     # retired at its first token
+
+
+def test_engine_matches_jax_engine(monkeypatch):
+    _check_engine_matches_jax(monkeypatch, "smollm-135m")
+
+
+def test_mamba_engine_matches_jax_engine(monkeypatch):
+    """The same queue on reduced mamba2-1.3b: prompts of 8 and 12 tokens are
+    padded to one 32-token chunk for the scan, decode continues from the
+    scan's final state. Weights seed 5: the EOS request's first token has a
+    top-2 margin of 0.274 there (seed 0's is 0.015, below MARGIN)."""
+    _check_engine_matches_jax(monkeypatch, "mamba2-1.3b", seed=5)
 
 
 def _setup(max_batch=4):
@@ -246,6 +259,15 @@ def test_driver_runs_on_cpu(capsys):
     assert "restore from an object store arrives in a later slice" in out
     assert "prefill:" in out and "tok/s" in out
     assert "decoded 3 tokens x 2 seqs" in out
+
+
+def test_driver_serves_mamba_on_cpu(capsys):
+    before = ssd.launches
+    serve_main.main(["--arch", "mamba2-1.3b", "--device", "cpu", "--batch", "2",
+                     "--prompt-len", "8", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "prefill:" in out and "decoded 3 tokens x 2 seqs" in out
+    assert ssd.launches == before   # CPU tensors take the plain version
 
 
 def test_driver_samples_with_temperature(capsys):
