@@ -5,11 +5,15 @@
 
 Phases, each of which exits non-zero on a failed check:
   1. the card's name and power limit; build the CUDA kernels from csrc/,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together; each instantiation's
+     registers and spills (ptxas), and the serving instantiations' shared
+     memory and CTAs per SM;
   2. each kernel (flash attention, the SSD scan) against its plain PyTorch
-     version on the card, over the JAX package's test shapes and the
-     serving paths' shapes, and timed beside the plain version, its bound
-     and, where one exists, a PyTorch library call;
+     version on the card, over the JAX package's test shapes, the serving
+     paths' shapes and the bf16 tensor-core paths' shapes, and timed at
+     both serving waves beside the plain version, its bound and, where one
+     exists, a PyTorch library call, as eager calls and as device time
+     over a CUDA graph;
   3. the attention path: full-width smollm-135m (random weights from a
      seed) served by `ServeEngine`, 8 prompts of 512 tokens and 4 of 128,
      32 new tokens each; the launch counts must show that every layer's
@@ -30,6 +34,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,8 +65,16 @@ FLASH_CASES = [
     (2, 3, 1, 12, 12, 16, True, "bfloat16"),
     (4, 9, 3, 128, 128, 64, True, "bfloat16"),
     (8, 9, 3, 512, 512, 64, True, "bfloat16"),
+    # ... and the bf16 tensor-core kernel's paths: head dims 16, 32 and
+    # 128, causal Sq != Sk, ragged non-causal.
+    (1, 4, 2, 256, 256, 16, True, "bfloat16"),
+    (1, 4, 2, 256, 256, 32, True, "bfloat16"),
+    (2, 4, 2, 200, 200, 128, True, "bfloat16"),
+    (1, 2, 2, 128, 256, 64, True, "bfloat16"),
+    (1, 4, 2, 77, 130, 32, False, "bfloat16"),
 ]
 SLICE_SHAPE = (8, 9, 3, 512, 512, 64, True, "bfloat16")
+WAVE2_SHAPE = (4, 9, 3, 128, 128, 64, True, "bfloat16")
 SSD_CASES = [
     # (b, s, h, g, p, n, chunk, dtype): the JAX package's test sweep ...
     (1, 128, 4, 1, 32, 32, 32, "float32"),
@@ -74,10 +87,37 @@ SSD_CASES = [
     (8, 512, 64, 1, 64, 128, 256, "bfloat16"),
     (4, 256, 64, 1, 64, 128, 256, "bfloat16"),
     (2, 512, 8, 2, 64, 128, 256, "bfloat16"),
+    # ... and the bf16 tensor-core kernel's paths: P 16 and 128, N = 20
+    # (padded, ordinary loads), Q = 100, two groups.
+    (1, 128, 4, 1, 16, 64, 64, "bfloat16"),
+    (1, 256, 2, 1, 128, 128, 128, "bfloat16"),
+    (2, 128, 4, 1, 32, 20, 64, "bfloat16"),
+    (1, 200, 4, 2, 32, 64, 100, "bfloat16"),
+    (2, 256, 8, 2, 64, 128, 128, "bfloat16"),
 ]
 SSD_SLICE_SHAPE = (8, 512, 64, 1, 64, 128, 256, "bfloat16")
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
 WHOLE_STACK_TOL = 0.15                         # tests/test_archs.py
+
+
+def ptxas_summary(path: str) -> list[str]:
+    """One line per kernel instantiation from `nvcc -Xptxas -v`: registers
+    and spill bytes."""
+    if not os.path.exists(path):
+        return []
+    out, name, spills = [], "?", "spills not reported"
+    with open(path) as f:
+        for line in f:
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                name = m.group(1)
+                if k := re.search(r"\d+([a-z_]+(?:bf16|f32)_kernel)I(\w*?)EEv", name):
+                    args = re.findall(r"L[ib](\d+)E", k.group(2) + "E")
+                    name = f"{k.group(1)}<{', '.join(args)}>"
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            elif m := re.search(r"Used (\d+) registers", line):
+                out.append(f"{name}: {m.group(1)} registers, {spills}")
+    return out
 
 
 def fail(msg: str) -> None:
@@ -103,6 +143,32 @@ def cuda_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
+    """Device time of one call, in ms: `inner` calls captured in one CUDA
+    graph, the median over `reps` timed replays. Unlike `cuda_ms`, the
+    host's launch overhead (the wrapper's checks, ctypes) drops out, so at
+    small shapes this is the kernel's own time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 def flash_inputs(torch, case, seed: int):
     """q, k, v as (B, H, S, D) views of (B, S, H, D) tensors, the layout the
     model hands the kernel."""
@@ -115,6 +181,32 @@ def flash_inputs(torch, case, seed: int):
         return torch.randn((b, s, h, d), generator=g, device="cuda").to(dt).transpose(1, 2)
 
     return make(hq, sq), make(hkv, sk), make(hkv, sk)
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS_S[str(dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_work(q, k, causal: bool) -> tuple[int, int]:
+    """Bytes (q, k, v read once, o written once) and the visible work, 4 D
+    operations per visible (row, column) pair."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * q.element_size()
+    visible = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
+    return nbytes, 4 * d * visible * b * hq
+
+
+def sdpa_call(torch, q, k, v):
+    """The library yardstick: one `scaled_dot_product_attention` call on k/v
+    expanded to the q heads."""
+    group = q.shape[1] // k.shape[1]
+    ke = k.repeat_interleave(group, dim=1)
+    ve = v.repeat_interleave(group, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q, ke, ve, is_causal=True)
 
 
 def phase_kernels(torch, fa) -> dict:
@@ -138,24 +230,37 @@ def phase_kernels(torch, fa) -> dict:
 
     b, hq, hkv, sq, sk, d, causal, dtype = SLICE_SHAPE
     q, k, v = flash_inputs(torch, SLICE_SHAPE, seed=1)
-    elem = q.element_size()
-    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * sk * d) * elem
-    visible = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
-    flops = 4 * d * visible * b * hq
-    bound_ms = max(nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS_S[str(q.dtype)]) * 1e3
-    bound_by = "bytes" if nbytes / PEAK_BYTES_S >= flops / PEAK_FLOPS_S[str(q.dtype)] \
-        else "operations"
-    # The library yardstick reads k/v expanded to the q heads.
-    ke = k.repeat_interleave(hq // hkv, dim=1)
-    ve = v.repeat_interleave(hq // hkv, dim=1)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes, flops = flash_work(q, k, causal)
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    sdpa = sdpa_call(torch, q, k, v)
     ms = cuda_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
     plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=True))
-    library_ms = cuda_ms(torch, lambda: sdpa(q, ke, ve, is_causal=True))
+    library_ms = cuda_ms(torch, sdpa)
     ms2 = cuda_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
     print(f"flash at {SLICE_SHAPE}: kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, "
           f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    print(f"flash at {SLICE_SHAPE}: {bound_ms / statistics.median([ms, ms2]):.1%} of its bound, "
+          f"{statistics.median([ms, ms2]) / library_ms:.2f}x sdpa's time")
+    dev_ms = graph_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    dev_sdpa = graph_ms(torch, sdpa)
+    print(f"flash at {SLICE_SHAPE}, device time (CUDA graph): kernel {dev_ms:.4f} ms, sdpa "
+          f"{dev_sdpa:.4f} ms; {bound_ms / dev_ms:.1%} of its bound, {dev_ms / dev_sdpa:.2f}x "
+          f"sdpa's time")
+    q, k, v = flash_inputs(torch, WAVE2_SHAPE, seed=2)
+    nbytes2, flops2 = flash_work(q, k, causal)
+    bound2, _ = bound(nbytes2, flops2, q.dtype)
+    sdpa = sdpa_call(torch, q, k, v)
+    ms_wave2 = cuda_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    sdpa_wave2 = cuda_ms(torch, sdpa)
+    print(f"flash at {WAVE2_SHAPE} (the 128-token wave): kernel {ms_wave2:.4f} ms, sdpa "
+          f"{sdpa_wave2:.4f} ms, bound {bound2:.4f} ms; {bound2 / ms_wave2:.1%} of its bound, "
+          f"{ms_wave2 / sdpa_wave2:.2f}x sdpa's time")
+    dev_ms = graph_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    dev_sdpa = graph_ms(torch, sdpa)
+    print(f"flash at {WAVE2_SHAPE}, device time (CUDA graph): kernel {dev_ms:.4f} ms, sdpa "
+          f"{dev_sdpa:.4f} ms; {bound2 / dev_ms:.1%} of its bound, {dev_ms / dev_sdpa:.2f}x "
+          f"sdpa's time")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -232,9 +337,7 @@ def phase_ssd_kernel(torch, ssd) -> dict:
     nbytes = (2 * x.numel() + bp.numel() + cp.numel()) * elem + dt_a.numel() * 4 \
         + 2 * init.numel() * 4
     flops = b * h * (s // q) * (2 * (q * (q + 1) // 2) * (n + p) + 4 * q * n * p)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS_S[str(x.dtype)]
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = bound(nbytes, flops, x.dtype)
     ms = cuda_ms(torch, lambda: ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=q, initial_state=init))
     plain_ms = cuda_ms(torch, lambda: ssd.ssd_scan_plain(x, dt_a, bp, cp, chunk=q,
                                                          initial_state=init), reps=5, inner=2)
@@ -243,11 +346,20 @@ def phase_ssd_kernel(torch, ssd) -> dict:
           f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP); library call: none (no single PyTorch call "
           f"computes this scan)")
+    print(f"ssd at {SSD_SLICE_SHAPE}: {bound_ms / statistics.median([ms, ms2]):.1%} of its bound; "
+          f"ratio to a library call: none")
+    dev_ms = graph_ms(torch, lambda: ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=q,
+                                                       initial_state=init))
+    print(f"ssd at {SSD_SLICE_SHAPE}, device time (CUDA graph): kernel {dev_ms:.4f} ms; "
+          f"{bound_ms / dev_ms:.1%} of its bound")
     wave2 = SSD_CASES[SSD_CASES.index(SSD_SLICE_SHAPE) + 1]
     x, dt_a, bp, cp, init = ssd_inputs(torch, wave2, seed=2)
     ms_wave2 = cuda_ms(torch, lambda: ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=q,
                                                         initial_state=init))
-    print(f"ssd at {wave2} (the padded 128-token wave): kernel {ms_wave2:.4f} ms")
+    dev_wave2 = graph_ms(torch, lambda: ssd.ssd_scan_cuda(x, dt_a, bp, cp, chunk=q,
+                                                          initial_state=init))
+    print(f"ssd at {wave2} (the padded 128-token wave): kernel {ms_wave2:.4f} ms, device time "
+          f"(CUDA graph) {dev_wave2:.4f} ms")
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -421,12 +533,14 @@ def main() -> None:
     print(f"build: {', '.join(f'{n} in {t:.1f}s' for n, t in built.items())}; "
           f"{time.perf_counter() - t0:.1f}s in all")
     for name in kernels:
-        ptxas = os.path.join(ROOT, "build", f"{name}.ptxas.txt")
-        if os.path.exists(ptxas):
-            with open(ptxas) as f:
-                for line in f:
-                    if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
-                        print(f"ptxas {name}:", line.strip())
+        for line in ptxas_summary(os.path.join(ROOT, "build", f"{name}.ptxas.txt")):
+            print(f"ptxas {name}: {line}")
+    for dt in ("bfloat16", "float32"):
+        blocks, smem = fa.occupancy(getattr(torch, dt), 64)
+        print(f"occupancy flash {dt} D 64: {smem} bytes of shared memory, {blocks} CTAs per SM")
+        blocks, smem = ssd.occupancy(getattr(torch, dt), 64, 128, 256)
+        print(f"occupancy ssd {dt} P 64, N 128, Q 256: {smem} bytes of shared memory, "
+              f"{blocks} CTAs per SM")
 
     flash = phase_kernels(torch, fa)
     scan = phase_ssd_kernel(torch, ssd)

@@ -3,8 +3,9 @@
 Each source has a plain C interface and is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into ``build/`` at
 the root of the checkout, then loaded with `ctypes`. The library's name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Nothing here runs at import.
+carries a hash of the source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited source or header is rebuilt and an unchanged tree
+is loaded as it is. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -31,8 +32,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

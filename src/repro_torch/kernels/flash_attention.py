@@ -3,10 +3,13 @@ plain PyTorch version.
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``_flash_kernel`` of ``src/repro/kernels/flash_attention.py``: blocked
-online-softmax GQA attention with the top-left causal mask, fp32 math, and
-the output in q's dtype. `flash_attention_cuda` launches it on PyTorch's
-current stream; `flash_attention_plain` computes the same function in
-plain PyTorch, for CPU tensors and as the kernel's yardstick on the card.
+online-softmax GQA attention with the top-left causal mask, fp32 softmax
+state, and the output in q's dtype. bf16 inputs go to a tensor-core kernel
+(bf16 products with fp32 sums, P rounded to bf16 before P V); fp32 inputs
+to a scalar kernel in exact fp32. `flash_attention_cuda` launches it on
+PyTorch's current stream; `flash_attention_plain` computes the same
+function in plain PyTorch, for CPU tensors and as the kernel's yardstick on
+the card.
 """
 
 from __future__ import annotations
@@ -68,6 +71,9 @@ def _library() -> ctypes.CDLL:
            ctypes.c_void_p]
     )
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_occupancy.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.flash_attention_occupancy.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -110,3 +116,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{lib.flash_attention_error_string(code).decode()}")
     launches += 1
     return out
+
+
+def occupancy(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> tuple[int, int]:
+    """(CTAs per SM, dynamic shared memory in bytes) of the kernel that
+    `dtype`, `head_dim` and 16-byte alignment of the inputs select, from the
+    CUDA runtime's occupancy query on the current device."""
+    lib = _library()
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    code = lib.flash_attention_occupancy(_DTYPE_CODES[dtype], head_dim, int(aligned),
+                                         ctypes.byref(blocks), ctypes.byref(smem))
+    if code != 0:
+        raise RuntimeError(f"flash attention occupancy query failed: "
+                           f"{lib.flash_attention_error_string(code).decode()}")
+    return blocks.value, smem.value

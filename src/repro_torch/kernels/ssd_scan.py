@@ -10,8 +10,11 @@ chunks run in order, with the (P, N) state carried from one to the next:
     y      = ((C B^T) * L) X + (C h^T) * exp(acs)
     h      = exp(acs_last) h + X^T (B * exp(acs_last - acs))
 
-fp32 math and state throughout; y comes back in x's dtype and the final
-state in fp32. `ssd_scan_cuda` launches the kernel on PyTorch's current
+The state is fp32 throughout; y comes back in x's dtype and the final state
+in fp32. bf16 inputs go to a tensor-core kernel (bf16 products with fp32
+sums; the masked decayed scores, a bf16 copy of the entering state and
+B * exp(acs_last - acs) are rounded to bf16); fp32 inputs to a scalar
+kernel in exact fp32. `ssd_scan_cuda` launches the kernel on PyTorch's current
 stream; `ssd_scan_plain` computes the same function in plain PyTorch (the
 chunked einsum formulation of the JAX package's ``models/ssd.py``), for
 CPU tensors and as the kernel's yardstick on the card.
@@ -149,6 +152,8 @@ def _library() -> ctypes.CDLL:
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     )
     lib.ssd_scan_fwd.restype = ctypes.c_int
+    lib.ssd_scan_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.ssd_scan_occupancy.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -210,3 +215,18 @@ def ssd_scan_cuda(x: torch.Tensor, dt_a: torch.Tensor, b_proj: torch.Tensor,
                            f"{lib.ssd_scan_error_string(code).decode()}")
     launches += 1
     return y, final
+
+
+def occupancy(dtype: torch.dtype, head_dim: int, state: int, chunk: int,
+              aligned: bool = True) -> tuple[int, int]:
+    """(CTAs per SM, dynamic shared memory in bytes) of the kernel that
+    `dtype`, the sizes and 16-byte alignment of the inputs select, from the
+    CUDA runtime's occupancy query on the current device."""
+    lib = _library()
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    code = lib.ssd_scan_occupancy(_DTYPE_CODES[dtype], head_dim, state, chunk, int(aligned),
+                                  ctypes.byref(blocks), ctypes.byref(smem))
+    if code != 0:
+        raise RuntimeError(f"ssd scan occupancy query failed: "
+                           f"{lib.ssd_scan_error_string(code).decode()}")
+    return blocks.value, smem.value

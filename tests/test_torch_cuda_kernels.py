@@ -37,6 +37,13 @@ CASES = [
     (2, 9, 3, 200, 200, 64, True, torch.bfloat16),
     (1, 4, 2, 77, 130, 32, False, torch.float32),
     (2, 3, 1, 12, 12, 16, True, torch.bfloat16),
+    # ... plus bf16 cases that reach each path of the tensor-core kernel:
+    # head dims 16, 32 and 128, causal Sq != Sk, ragged non-causal.
+    (1, 4, 2, 256, 256, 16, True, torch.bfloat16),
+    (1, 4, 2, 256, 256, 32, True, torch.bfloat16),
+    (2, 4, 2, 200, 200, 128, True, torch.bfloat16),
+    (1, 2, 2, 128, 256, 64, True, torch.bfloat16),
+    (1, 4, 2, 77, 130, 32, False, torch.bfloat16),
 ]
 
 
@@ -73,6 +80,26 @@ def test_kernel_matches_plain(cuda, case):
     assert out.dtype == dtype and out.shape == q.shape
     tol = _tol(dtype)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_bf16_kernel_takes_strided_views(cuda, offset):
+    """q, k, v as every other head of wider (B, S, H, D) tensors: 16-byte
+    aligned rows go through cp.async, rows shifted by one element through
+    ordinary loads."""
+    b, h, s, d = 2, 4, 150, 64
+    rng = np.random.default_rng(5)
+
+    def view(heads):
+        flat = torch.from_numpy(rng.standard_normal(b * s * 2 * heads * d + 1, dtype=np.float32))
+        wide = flat.to(cuda, torch.bfloat16)[offset:offset + b * s * 2 * heads * d]
+        return wide.view(b, s, 2 * heads, d)[:, :, ::2].transpose(1, 2)
+
+    q, k, v = view(h), view(h // 2), view(h // 2)
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    ref = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_causal_rows_see_only_their_prefix(cuda):
@@ -145,6 +172,14 @@ SSD_CASES = [
     (2, 64, 8, 1, 16, 16, 32, torch.bfloat16),
     (1, 200, 4, 2, 32, 64, 100, torch.float32),
     (1, 128, 2, 1, 128, 128, 128, torch.float32),
+    # ... plus bf16 cases that reach each path of the tensor-core kernel:
+    # P 16 and 128, N = 20 (zero-padded to 32; rows not 16-byte aligned, so
+    # ordinary loads), Q = 100, and two groups.
+    (1, 128, 4, 1, 16, 64, 64, torch.bfloat16),
+    (1, 256, 2, 1, 128, 128, 128, torch.bfloat16),
+    (2, 128, 4, 1, 32, 20, 64, torch.bfloat16),
+    (1, 200, 4, 2, 32, 64, 100, torch.bfloat16),
+    (2, 256, 8, 2, 64, 128, 128, torch.bfloat16),
 ]
 
 
@@ -202,6 +237,27 @@ def test_ssd_kernel_takes_strided_views(cuda):
     y_ref, h_ref = ssd.ssd_scan_plain(x, dt_a, bp, cp, chunk=64, initial_state=init * 0.5)
     torch.testing.assert_close(y, y_ref, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(h, h_ref, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_ssd_bf16_kernel_takes_strided_views(cuda, offset):
+    """bf16 x as every other head of a wider tensor and B/C as views into
+    one buffer: 16-byte aligned rows go through cp.async, rows shifted by
+    one element through ordinary loads."""
+    x, dt_a, bp, cp, init = _ssd_inputs((2, 256, 4, 1, 64, 128, 128, torch.bfloat16), 6, cuda,
+                                        initial=True)
+    wide = torch.zeros(2 * 256 * 8 * 64 + 8, device=cuda, dtype=torch.bfloat16)
+    xv = wide[offset:offset + 2 * 256 * 8 * 64].view(2, 256, 8, 64)[:, :, ::2]
+    xv.copy_(x)
+    both = torch.zeros(2 * 256 * 2 * 128 + 8, device=cuda, dtype=torch.bfloat16)
+    bc = both[offset:offset + 2 * 256 * 2 * 128].view(2, 256, 2, 128)
+    bc[:, :, 0].copy_(bp[:, :, 0])
+    bc[:, :, 1].copy_(cp[:, :, 0])
+    y, h = ssd.ssd_scan_cuda(xv, dt_a, bc[:, :, :1], bc[:, :, 1:], chunk=128, initial_state=init)
+    y_ref, h_ref = ssd.ssd_scan_plain(x, dt_a, bp, cp, chunk=128, initial_state=init)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(h, h_ref, rtol=2e-2, atol=2e-2)
 
 
 def test_ssd_launch_counter_counts_launches_only(cuda):
