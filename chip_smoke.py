@@ -24,6 +24,14 @@ Phases, each of which exits non-zero on a failed check:
      through the kernel against the same prompt half prefilled, half
      decoded token by token through the plain decode path over the cache
      (for mamba2-1.3b held in fp32 activations, printed in bf16);
+  3c. restore: full-width smollm-135m weights published to a simulated
+     object store (10 ms a request, 160 MB/s) and restored onto the card
+     with rolling prefetch (through `ServeEngine.from_store`, which then
+     serves phase 3's traffic and must give the same greedy tokens), with
+     the sequential baseline, and with rolling into a disk cache twice (the
+     second restore with no store GET); then a bf16 copy of the weights the
+     same way. Every leaf bit-exact and on the card; seconds, GETs, bytes
+     and the wait on the reader vs on host-to-device copies printed;
   5. a JSON line of the kernels' numbers, then the result line.
 
 Needs a CUDA device and the repository's src/ beside this file.
@@ -32,9 +40,11 @@ Needs a CUDA device and the repository's src/ beside this file.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -96,6 +106,10 @@ SSD_CASES = [
     (2, 256, 8, 2, 64, 128, 128, "bfloat16"),
 ]
 SSD_SLICE_SHAPE = (8, 512, 64, 1, 64, 128, 256, "bfloat16")
+# The simulated weight store of the restore phase: the JAX serving driver's
+# default (10 ms a request, 80 MB/s) at twice the bandwidth, which halves
+# the time of the phase's two saves and eight restores.
+RESTORE_URI = "sims3://weights?latency_ms=10&bw_mbps=160"
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
 WHOLE_STACK_TOL = 0.15                         # tests/test_archs.py
 
@@ -374,11 +388,14 @@ def phase_ssd_kernel(torch, ssd) -> dict:
     }
 
 
-def phase_serve(torch, np, cfg, model, params, kernels: dict, path: str) -> int:
-    """Serve the fixed traffic through `ServeEngine`. Every kernel's count is
-    set to 0 just before the run and read just after: the kernel named
-    `path` must have launched once per layer per wave, the others never.
-    Returns `path`'s launches."""
+def phase_serve(torch, np, cfg, model, params, kernels: dict, path: str,
+                make_engine=None) -> tuple[int, dict]:
+    """Serve the fixed traffic through `ServeEngine`, built on `params` in
+    memory, or by `make_engine(engine_class)` (e.g. from the object store).
+    Every kernel's count is set to 0 just before the run and read just
+    after: the kernel named `path` must have launched once per layer per
+    wave, the others never. Returns `path`'s launches and each request's
+    greedy tokens."""
     from repro_torch.serve import Request, ServeEngine
 
     class Engine(ServeEngine):
@@ -397,7 +414,8 @@ def phase_serve(torch, np, cfg, model, params, kernels: dict, path: str) -> int:
     warm.submit(Request(rid=0, prompt=rng.integers(0, cfg.vocab_size, 64), max_new_tokens=2))
     warm.run()
 
-    engine = Engine(model, params, max_batch=8, device="cuda")
+    engine = (Engine(model, params, max_batch=8, device="cuda") if make_engine is None
+              else make_engine(Engine))
     lens = [512] * 8 + [128] * 4
     for i, n in enumerate(lens):
         engine.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
@@ -430,7 +448,7 @@ def phase_serve(torch, np, cfg, model, params, kernels: dict, path: str) -> int:
     nonfinite = int(engine.nonfinite)
     if nonfinite:
         fail(f"{nonfinite} non-finite logits during serving")
-    return counts[path]
+    return counts[path], {r.rid: r.tokens.tolist() for r in results}
 
 
 def prefill_vs_decode(torch, np, kernel, cfg, model, params):
@@ -493,6 +511,148 @@ def phase_mamba_prefill_vs_decode(torch, np, kernel, cfg, model, params) -> None
     check_close(torch, cfg, a, b, TOL["float32"], ", fp32 activations")
 
 
+class RestoreLog(logging.Handler):
+    """Keeps the split of wall time that each restore logs on its record
+    (`restore_split`: reader, digest, staging and host-to-device wait)."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.splits: list[dict] = []
+
+    def emit(self, record) -> None:
+        if hasattr(record, "restore_split"):
+            self.splits.append(record.restore_split)
+
+
+def count_store_gets(store) -> list:
+    """Count the store's data GETs (range and coalesced-range requests; the
+    manifest GET and the size HEADs are metadata): one entry per call,
+    appended by whichever engine thread makes it."""
+    calls: list = []
+    for name in ("get_range", "get_ranges"):
+        fn = getattr(store, name)
+
+        def counted(*args, _fn=fn, **kw):
+            calls.append(1)
+            return _fn(*args, **kw)
+
+        setattr(store, name, counted)
+    return calls
+
+
+def check_restored(torch, want: dict, got: dict, what: str) -> None:
+    """Every leaf bit-exact (`torch.equal`, dtype and shape) and on the card."""
+    from repro_torch.ckpt.manager import _flatten
+
+    want, got = _flatten(want), _flatten(got)
+    if len(got) != len(want):
+        fail(f"restore {what}: {len(got)} leaves, want {len(want)}")
+    for i, (a, b) in enumerate(zip(want, got)):
+        if not b.is_cuda or b.dtype != a.dtype or b.shape != a.shape or not torch.equal(a, b):
+            fail(f"restore {what}: leaf {i} is {b.dtype} {tuple(b.shape)} on {b.device}, "
+                 f"want {a.dtype} {tuple(a.shape)} on the card, bit-exact")
+
+
+def phase_restore(torch, np, cfg, model, params, kernels: dict, tokens: dict) -> None:
+    """Publish full-width weights to a simulated object store and restore
+    them onto the card: rolling (through `ServeEngine.from_store`,
+    which then serves the serve phase's traffic and must give its tokens),
+    sequential, and rolling into a disk cache under build/ twice, the second
+    time with no store GET. Then the same restores of a bf16 copy."""
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.ckpt.manager import _flatten
+    from repro_torch.io import IOPolicy, open_store
+
+    store = open_store(RESTORE_URI)
+    gets = count_store_gets(store)
+    log = RestoreLog()
+    ckpt_log = logging.getLogger("repro_torch.ckpt")
+    ckpt_log.setLevel(logging.INFO)
+    ckpt_log.propagate = False
+    ckpt_log.addHandler(log)
+    cache_root = os.path.join(ROOT, "build", "restore_cache")
+    shutil.rmtree(cache_root, ignore_errors=True)
+    t_phase = time.perf_counter()
+
+    def measured(label: str, restore):
+        """Run `restore()` and return what it returns; print its seconds,
+        data GETs, bytes moved over the link and the split of its wall
+        time."""
+        g0, b0, n0 = len(gets), store.link.bytes_moved, len(log.splits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = restore()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if len(log.splits) != n0 + 1:
+            fail(f"restore {label}: logged {len(log.splits) - n0} restore records, want 1")
+        sp = log.splits[-1]
+        print(f"restore {label}: {dt:.3f} s, {len(gets) - g0} store GETs, "
+              f"{(store.link.bytes_moved - b0) / 1e6:.1f} MB moved; main thread waited "
+              f"{sp['reader_s']:.3f} s on the reader and {sp['h2d_wait_s']:.3f} s on "
+              f"host-to-device copies (digest {sp['digest_s']:.3f} s, staging "
+              f"{sp['stage_s']:.3f} s, restore loop {sp['total_s']:.3f} s)")
+        return tree
+
+    for dtype in ("float32", "bfloat16"):
+        tree = (params if dtype == "float32"
+                else model.init(0, device="cuda", param_dtype=torch.bfloat16))
+        prefix = f"weights_{dtype}"
+        leaves = _flatten(tree)
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        t0 = time.perf_counter()
+        save_checkpoint(store, prefix, 0, tree, policy=IOPolicy(write_depth=4))
+        print(f"save {dtype}: {time.perf_counter() - t0:.3f} s, {nbytes / 1e6:.1f} MB in "
+              f"{len(leaves)} leaves to {RESTORE_URI}")
+
+        def policy(engine: str) -> IOPolicy:   # the driver's restore policy
+            return IOPolicy(engine=engine, depth=2, eviction_interval_s=0.2)
+
+        if dtype == "float32":
+            engines = []
+
+            def from_store(cls):
+                engines.append(measured(
+                    f"{dtype} rolling (ServeEngine.from_store)",
+                    lambda: cls.from_store(model, store, prefix, tree, device="cuda")))
+                return engines[-1]
+
+            launches, served = phase_serve(torch, np, cfg, model, tree, kernels,
+                                           "flash_attention", make_engine=from_store)
+            check_restored(torch, tree, engines[0].params, f"{dtype} rolling")
+            if served != tokens:
+                fail("greedy tokens served from the store differ from the in-memory run's")
+            print(f"serve from the store: {len(served)} requests, greedy tokens identical to "
+                  f"the in-memory run's, {launches} flash launches")
+            del engines
+        else:
+            got = measured(f"{dtype} rolling",
+                           lambda: restore_checkpoint(store, prefix, tree, device="cuda",
+                                                      policy=policy("rolling"))[0])
+            check_restored(torch, tree, got, f"{dtype} rolling")
+            del got
+        got = measured(f"{dtype} sequential",
+                       lambda: restore_checkpoint(store, prefix, tree, device="cuda",
+                                                  policy=policy("sequential"))[0])
+        check_restored(torch, tree, got, f"{dtype} sequential")
+        del got
+        cache = os.path.join(cache_root, dtype)
+        for run in ("cold", "warm"):
+            g0 = len(gets)
+            got = measured(f"{dtype} rolling, cache_dir {run}",
+                           lambda: restore_checkpoint(store, prefix, tree, device="cuda",
+                                                      policy=policy("rolling"), cache_dir=cache,
+                                                      cache_capacity=2 * nbytes)[0])
+            check_restored(torch, tree, got, f"{dtype} cache_dir {run}")
+            del got
+            if run == "warm" and len(gets) != g0:
+                fail(f"warm restore from {cache} made {len(gets) - g0} store GETs, want 0")
+        del tree
+    ckpt_log.removeHandler(log)
+    shutil.rmtree(cache_root, ignore_errors=True)
+    print(f"restore phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -548,8 +708,10 @@ def main() -> None:
     cfg = get_config("smollm-135m")
     model = make_model(cfg)
     params = model.init(0, device="cuda")
-    flash["launches"] = phase_serve(torch, np, cfg, model, params, kernels, "flash_attention")
+    flash["launches"], tokens = phase_serve(torch, np, cfg, model, params, kernels,
+                                            "flash_attention")
     phase_prefill_vs_decode(torch, np, fa, cfg, model, params)
+    phase_restore(torch, np, cfg, model, params, kernels, tokens)
     del params
 
     cfg = get_config("mamba2-1.3b")
@@ -557,7 +719,7 @@ def main() -> None:
     params = model.init(0, device="cuda")
     print(f"{cfg.name}: {model.param_count() / 1e9:.3f} B parameters, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    scan["launches"] = phase_serve(torch, np, cfg, model, params, kernels, "ssd_scan")
+    scan["launches"], _ = phase_serve(torch, np, cfg, model, params, kernels, "ssd_scan")
     phase_mamba_prefill_vs_decode(torch, np, ssd, cfg, model, params)
 
     rows = [flash, scan]

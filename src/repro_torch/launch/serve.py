@@ -1,14 +1,16 @@
-"""Serving driver: batched prefill + greedy or sampled decode with decode
-caches (attention KV caches, Mamba conv/SSM states), on the GPU by default.
+"""Serving driver: weights published to an object store and restored from
+it through Rolling Prefetch (cold-start latency is a first-order cost at
+serving scale, and checkpoint restore is exactly the sequential
+multi-object stream the paper optimizes), then batched prefill + greedy or
+sampled decode with decode caches (attention KV caches, Mamba conv/SSM
+states), on the GPU by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full \
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full \
       --batch 8 --prompt-len 512 --gen 32
 
-Weights come from the port's own seeded init. Restoring them from an
-object store (the JAX driver's --store/--restore-mode/--autotune/
---cache-dir) and --quant int8 arrive in later slices of the port.
+--quant int8 arrives in a later slice of the port.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.ckpt.manager import restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
+from repro_torch.io import IOPolicy, open_store
 from repro_torch.models import lm as LM
 from repro_torch.models import make_model
 
@@ -38,6 +42,18 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--restore-mode", default="rolling",
+                    choices=["rolling", "sequential"])
+    ap.add_argument("--autotune", action="store_true",
+                    help="adaptive restore: coalesced range GETs + AIMD "
+                         "stream depth + closed-loop blocksize tuning")
+    ap.add_argument("--store", default="sims3://weights?latency_ms=10&bw_mbps=80",
+                    help="weight store URI (any registered scheme)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="persistent weight-block cache directory: restores "
+                         "cache into a journaled DirTier there, so a "
+                         "restarted replica cold-starts warm (zero store "
+                         "GETs for blocks that survived on local disk)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -48,9 +64,24 @@ def main(argv: list[str] | None = None) -> None:
         cfg = cfg.reduced()
     model = make_model(cfg)
     device = torch.device(args.device)
-    print("weights: seeded init (--seed); restore from an object store "
-          "arrives in a later slice of the port")
+
+    # --- publish + cold-start restore through the object store ----------------
+    store = open_store(args.store)
     params = model.init(args.seed, device=device)
+    save_checkpoint(store, "weights", 0, params,
+                    policy=IOPolicy(write_depth=4))
+    t0 = time.perf_counter()
+    params, _ = restore_checkpoint(
+        store, "weights", params,
+        policy=IOPolicy(engine=args.restore_mode, depth=2,
+                        max_depth=8 if args.autotune else None,
+                        autotune=args.autotune,
+                        eviction_interval_s=0.2),
+        cache_dir=args.cache_dir,
+        device=device,
+    )
+    print(f"weight restore ({args.restore_mode}): {time.perf_counter() - t0:.2f}s"
+          + (f" [cache: {args.cache_dir}]" if args.cache_dir else ""))
 
     # --- batched prefill -------------------------------------------------------
     b, s = args.batch, args.prompt_len

@@ -9,7 +9,9 @@ kernel and Mamba layers through the SSD scan kernel), then decodes step by
 step. Finished sequences (EOS or their own token budget) are masked out;
 the wave retires when every member finishes, and the queue refills the
 next wave. Greedy argmax and retirement run on the host, from one copy of
-the logits per step.
+the logits per step. `ServeEngine.from_store` cold-starts an engine from
+checkpointed weights streamed through Rolling Prefetch: serving cold-start
+is the paper's sequential-object-stream case.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.ckpt.manager import restore_checkpoint
+from repro_torch.io import IOPolicy
 from repro_torch.models import lm as LM
 from repro_torch.models.api import Model
 from repro_torch.utils import get_logger
@@ -68,6 +72,31 @@ class ServeEngine:
         self.device = torch.device(device)
         self.queue: list[Request] = []
         self.stats = ServeStats()
+
+    @classmethod
+    def from_store(cls, model: Model, store, prefix: str, template, *,
+                   policy=None, step: int | None = None, max_batch: int = 8,
+                   pad_id: int = 0, device="cuda") -> "ServeEngine":
+        """Cold-start an engine on `device` from checkpointed weights in an
+        object store, streamed through the `PrefetchFS` facade: pass
+        ``policy=IOPolicy(engine="rolling", depth=...)`` to overlap leaf
+        fetches with the host-to-device copies (serving cold-start is the
+        paper's sequential multi-object stream). `template` gives the
+        tree's structure (tensors or ``meta`` tensors)."""
+        # Serving cold-start is the latency-critical restore class: under
+        # an HSM hierarchy its blocks admit into (and are protected in)
+        # the top tier, so a concurrent bulk scan cannot flush the weights
+        # a replica re-reads on every restart.
+        if policy is None:
+            # Mirrors restore_checkpoint's own default policy, plus the
+            # serve class.
+            policy = IOPolicy(engine="rolling", blocksize=8 << 20, depth=2,
+                              eviction_interval_s=0.2, io_class="serve")
+        elif policy.io_class == "default":
+            policy = policy.replace(io_class="serve")
+        params, _ = restore_checkpoint(store, prefix, template, step=step,
+                                       policy=policy, device=device)
+        return cls(model, params, max_batch=max_batch, pad_id=pad_id, device=device)
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)

@@ -1,0 +1,51 @@
+from repro_torch.store.base import (
+    MultipartUpload,
+    ObjectMeta,
+    ObjectStore,
+    StoreError,
+    ThrottleError,
+    TransientStoreError,
+)
+from repro_torch.store.hsm import (
+    AdmissionPolicy,
+    HSMIndex,
+    HSMStore,
+    TierCostModel,
+    parse_size,
+)
+from repro_torch.store.link import LinkModel, PeerLinkModel
+from repro_torch.store.sim_s3 import SimS3Store
+from repro_torch.store.local import DirStore, MemStore
+from repro_torch.store.tiers import (
+    BlockMeta,
+    CacheFlight,
+    CacheIndex,
+    CacheTier,
+    DirTier,
+    MemTier,
+)
+
+__all__ = [
+    "BlockMeta",
+    "CacheFlight",
+    "CacheIndex",
+    "MultipartUpload",
+    "ObjectStore",
+    "ObjectMeta",
+    "StoreError",
+    "ThrottleError",
+    "TransientStoreError",
+    "LinkModel",
+    "PeerLinkModel",
+    "SimS3Store",
+    "DirStore",
+    "MemStore",
+    "CacheTier",
+    "MemTier",
+    "DirTier",
+    "AdmissionPolicy",
+    "HSMIndex",
+    "HSMStore",
+    "TierCostModel",
+    "parse_size",
+]

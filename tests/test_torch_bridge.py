@@ -1,6 +1,6 @@
 """Carrying JAX parameters into the port, and the port's isolation from the
 JAX package: nothing under src/repro_torch/, nor chip_smoke.py, imports
-`jax` or `repro`."""
+`jax`, `ml_dtypes` or `repro`."""
 
 from __future__ import annotations
 
@@ -67,14 +67,16 @@ def test_port_source_imports_neither_jax_nor_repro(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}:{node.lineno} imports {name}"
+            assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), \
+                f"{path}:{node.lineno} imports {name}"
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.launch.serve, "
-            "repro_torch.kernels.ops, repro_torch.bridge; "
+            "repro_torch.kernels.ops, repro_torch.bridge, repro_torch.ckpt, repro_torch.io, "
+            "repro_torch.core, repro_torch.store, repro_torch.utils; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')))")
+            "('jax', 'jaxlib', 'ml_dtypes', 'repro')))")
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=REPO, timeout=120)

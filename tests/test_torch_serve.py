@@ -1,20 +1,27 @@
 """The port's serving engine and driver on the CPU: the port's engine against
-the JAX package's on the same weights and queue, tests/test_serve_engine.py
+the JAX package's on the same weights and queue, in memory and cold-started
+from an object store (`ServeEngine.from_store`), tests/test_serve_engine.py
 mirrored against `repro_torch.serve.ServeEngine` (wave batching, early
-retirement, batched == single-request decoding), plus the driver."""
+retirement, batched == single-request decoding), plus the driver with its
+store-restore flags."""
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from repro import serve as jax_serve
+from repro.ckpt import manager as jax_ckpt
 from repro.configs import get_config as jax_get_config
+from repro.io import open_store as jax_open_store
 from repro.models import lm as JLM
 from repro.models import make_model as jax_make_model
 from repro_torch.bridge import params_from_numpy
+from repro_torch.ckpt import save_checkpoint
 from repro_torch.configs import get_config
+from repro_torch.io import open_store
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import serve as serve_main
@@ -49,10 +56,9 @@ def _record_waves(monkeypatch, lm_module):
     return waves
 
 
-def _run_jax_engine(monkeypatch, model, params, requests):
-    """Serve `requests` through the JAX package's engine; returns its results,
-    stats and per-wave logits (prefill, then each decode step)."""
-    engine = jax_serve.ServeEngine(model, params, max_batch=3)
+def _run_jax_engine(monkeypatch, engine, requests):
+    """Serve `requests` through an engine of the JAX package; returns its
+    results, stats and per-wave logits (prefill, then each decode step)."""
     with monkeypatch.context() as mp:
         waves = _record_waves(mp, JLM)
         to_logits = JLM.logits_from_hidden
@@ -78,8 +84,7 @@ def _run_jax_engine(monkeypatch, model, params, requests):
     return results, engine.stats, waves
 
 
-def _run_torch_engine(monkeypatch, model, params, requests):
-    engine = ServeEngine(model, params, max_batch=3, device="cpu")
+def _run_torch_engine(monkeypatch, engine, requests):
     with monkeypatch.context() as mp:
         waves = _record_waves(mp, LM)
         greedy = engine._greedy
@@ -106,7 +111,34 @@ def _shared_weights(cfg, seed: int) -> dict:
     return to_numpy(make_model(cfg).init(seed, device="cpu"))
 
 
-def _check_engine_matches_jax(monkeypatch, name: str, seed: int = 0) -> None:
+def _engines(name: str, weights: dict, via_store: bool):
+    """The JAX package's engine and the port's on `weights`: built in
+    memory, or each cold-started by its own `ServeEngine.from_store` from a
+    checkpoint its own package saved to a simulated-S3 store (free link),
+    and then holding the weights bit for bit."""
+    jmodel = jax_make_model(jax_get_config(name).reduced())
+    model = make_model(get_config(name).reduced())
+    jparams = jax.tree.map(jnp.asarray, weights)
+    params = params_from_numpy(weights, "cpu")
+    if not via_store:
+        return (jax_serve.ServeEngine(jmodel, jparams, max_batch=3),
+                ServeEngine(model, params, max_batch=3, device="cpu"))
+    jstore = jax_open_store(f"sims3://serve-{name}?latency_ms=0")
+    store = open_store(f"sims3://serve-{name}?latency_ms=0")
+    jax_ckpt.save_checkpoint(jstore, "weights", 0, jparams)
+    save_checkpoint(store, "weights", 0, params)
+    jengine = jax_serve.ServeEngine.from_store(jmodel, jstore, "weights", jparams,
+                                               max_batch=3)
+    engine = ServeEngine.from_store(model, store, "weights",
+                                    params_from_numpy(weights, "meta"),
+                                    max_batch=3, device="cpu")
+    for got in (jax.tree.map(np.asarray, jengine.params), engine.params):
+        np.testing.assert_equal(got, weights)
+    return jengine, engine
+
+
+def _check_engine_matches_jax(monkeypatch, name: str, seed: int = 0,
+                              via_store: bool = False) -> None:
     """The port's engine and the JAX package's serve one queue on one set of
     weights, carried to each side from numpy: several waves, mixed prompt
     lengths and budgets, one request that stops at EOS. While a row's greedy
@@ -118,7 +150,6 @@ def _check_engine_matches_jax(monkeypatch, name: str, seed: int = 0) -> None:
     jmodel = jax_make_model(jcfg)
     weights = _shared_weights(cfg, seed=seed)
     jparams = jax.tree.map(jnp.asarray, weights)
-    params = params_from_numpy(weights, "cpu")
     rng = np.random.default_rng(PROMPT_SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n, _ in QUEUE]
 
@@ -133,10 +164,9 @@ def _check_engine_matches_jax(monkeypatch, name: str, seed: int = 0) -> None:
         probe.submit(r)
     eos = int({r.rid: r.tokens[0] for r in probe.run(max_waves=1)}[EOS_RID])
 
-    jres, jstats, jwaves = _run_jax_engine(monkeypatch, jmodel, jparams,
-                                           queue(jax_serve.Request, eos))
-    tres, tstats, twaves = _run_torch_engine(monkeypatch, make_model(cfg), params,
-                                             queue(Request, eos))
+    jengine, engine = _engines(name, weights, via_store)
+    jres, jstats, jwaves = _run_jax_engine(monkeypatch, jengine, queue(jax_serve.Request, eos))
+    tres, tstats, twaves = _run_torch_engine(monkeypatch, engine, queue(Request, eos))
     first = np.sort(jwaves[0][0][1, : cfg.vocab_size])[-2:]   # EOS_RID is row 1 of wave 1
     assert first[1] - first[0] > MARGIN, "the EOS request's first token must be clear"
 
@@ -181,6 +211,14 @@ def test_mamba_engine_matches_jax_engine(monkeypatch):
     scan's final state. Weights seed 5: the EOS request's first token has a
     top-2 margin of 0.274 there (seed 0's is 0.015, below MARGIN)."""
     _check_engine_matches_jax(monkeypatch, "mamba2-1.3b", seed=5)
+
+
+def test_engine_from_store_matches_jax_engine_from_store(monkeypatch):
+    _check_engine_matches_jax(monkeypatch, "smollm-135m", via_store=True)
+
+
+def test_mamba_engine_from_store_matches_jax_engine_from_store(monkeypatch):
+    _check_engine_matches_jax(monkeypatch, "mamba2-1.3b", seed=5, via_store=True)
 
 
 def _setup(max_batch=4):
@@ -256,7 +294,7 @@ def test_queue_drains_across_waves():
 def test_driver_runs_on_cpu(capsys):
     serve_main.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen", "3"])
     out = capsys.readouterr().out
-    assert "restore from an object store arrives in a later slice" in out
+    assert "weight restore (rolling): " in out
     assert "prefill:" in out and "tok/s" in out
     assert "decoded 3 tokens x 2 seqs" in out
 
@@ -274,3 +312,28 @@ def test_driver_samples_with_temperature(capsys):
     serve_main.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen", "3",
                      "--temperature", "0.7", "--seed", "5"])
     assert "decoded 3 tokens x 2 seqs" in capsys.readouterr().out
+
+
+def _sample_ids(out: str) -> str:
+    return next(line for line in out.splitlines() if line.startswith("sample token ids:"))
+
+
+@pytest.mark.parametrize("flags", [["--restore-mode", "sequential"], ["--autotune"],
+                                   ["--cache-dir"]], ids=["sequential", "autotune", "cache-dir"])
+def test_driver_restores_through_the_store(capsys, tmp_path, flags):
+    """The driver publishes, restores and serves through any restore flag,
+    with the tokens of a plain rolling restore; with --cache-dir a second
+    run (a restarted replica) restores from the warm disk cache."""
+    base = ["--device", "cpu", "--store", "sims3://w?latency_ms=0", "--batch", "2",
+            "--prompt-len", "16", "--gen", "8"]
+    if flags == ["--cache-dir"]:
+        flags = ["--cache-dir", str(tmp_path / "wcache")]
+    serve_main.main(base)
+    want = _sample_ids(capsys.readouterr().out)
+    for _ in range(2 if "--cache-dir" in flags else 1):
+        serve_main.main(base + flags)
+        out = capsys.readouterr().out
+        mode = "sequential" if "sequential" in flags else "rolling"
+        assert f"weight restore ({mode}): " in out
+        assert ("[cache: " in out) == ("--cache-dir" in flags)
+        assert _sample_ids(out) == want
