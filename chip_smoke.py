@@ -32,6 +32,22 @@ Phases, each of which exits non-zero on a failed check:
      second restore with no store GET); then a bf16 copy of the weights the
      same way. Every leaf bit-exact and on the card; seconds, GETs, bytes
      and the wait on the reader vs on host-to-device copies printed;
+  3d. training: full-width smollm-135m (fp32 parameters, bf16 activations,
+     batch 8 x 256) trained for 40 steps by the port's driver
+     (`repro_torch.launch.train`) from token shards in a simulated object
+     store, through the rolling-prefetch loader and the device feeder, with
+     write-behind checkpoints every 20 steps to a simulated store at 10 ms a
+     request and 1000 MB/s; the loss must be finite and not climb (the
+     shards are uniform random tokens), and neither kernel may launch. A
+     second run resumes from the step-20 checkpoint and must repeat the
+     first run's losses from step 21 on; the same state is restored and
+     saved again, timed; the loss of the driver's first batch, trained on
+     repeatedly, must fall; two steps of the same parameters and batches
+     (fp32 activations, batch 2 x 128) on the card and on the host CPU must
+     agree; a profiled window shows where a step's time goes; and the
+     kernels' entries must refuse a CUDA input that requires grad.
+     Tokens/s, step ms, the feeder's wait, peak memory, save and restore
+     seconds, and the loader's GETs and bytes printed;
   5. a JSON line of the kernels' numbers, then the result line.
 
 Needs a CUDA device and the repository's src/ beside this file.
@@ -110,6 +126,25 @@ SSD_SLICE_SHAPE = (8, 512, 64, 1, 64, 128, 256, "bfloat16")
 # default (10 ms a request, 80 MB/s) at twice the bandwidth, which halves
 # the time of the phase's two saves and eight restores.
 RESTORE_URI = "sims3://weights?latency_ms=10&bw_mbps=160"
+# The training phase's checkpoint store: the JAX training driver's 10 ms a
+# request at 1000 MB/s instead of its 50 MB/s, at which each save of the
+# 1.6 GB TrainState would take about 32 s.
+TRAIN_CKPT_URI = "sims3://{bucket}?latency_ms=10&bw_mbps=1000"
+# The driver's flags but a write depth of 16: its saves use --blocksize
+# (256 KiB) as the part size, 6,150 parts a save, and at the default depth 2
+# their 10 ms latencies alone take 31 s.
+TRAIN_ARGS = ["--arch", "smollm-135m", "--full", "--steps", "40", "--batch", "8",
+              "--seq-len", "256", "--ckpt-interval", "20", "--log-every", "10",
+              "--write-depth", "16", "--device", "cuda", "--seed", "0"]
+# The driver's shards are uniform random tokens: the loss can only fall
+# from the initial ~10.92 towards ln(49152) = 10.80, and 40 steps at lr 3e-4
+# move it less than the batch-to-batch noise. So the driver's run is held
+# to finite losses that do not climb, and learning is shown on one batch
+# trained on repeatedly, where no sampling noise hides the fall.
+CLIMB_TOL = 0.05           # nats, mean of steps 31-40 over mean of steps 1-5
+OVERFIT_STEPS, OVERFIT_FALL = 10, 0.1   # steps on one batch; least fall, nats
+RESUME_TOL = 1e-3          # relative, resumed vs uninterrupted losses
+CROSS_TOL = 1e-4           # relative, card vs host CPU in fp32 activations
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
 WHOLE_STACK_TOL = 0.15                         # tests/test_archs.py
 
@@ -653,6 +688,267 @@ def phase_restore(torch, np, cfg, model, params, kernels: dict, tokens: dict) ->
     print(f"restore phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def copy_step(src, dst, prefix: str, step: int) -> int:
+    """Copy one committed checkpoint's objects between simulated stores;
+    returns the bytes copied."""
+    n = 0
+    for meta in src.backing.list_objects(f"{prefix}/step_{step:08d}/"):
+        data = src.backing.get(meta.key)
+        dst.backing.put(meta.key, data)
+        n += len(data)
+    return n
+
+
+def phase_train_overfit(torch) -> None:
+    """The driver's train step, config and first batch (from its simulated
+    store, through the rolling-prefetch loader), trained on repeatedly: with
+    no sampling noise the loss must fall by OVERFIT_FALL at least."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LoaderConfig, PrefetchingDataLoader
+    from repro_torch.io import IOPolicy
+    from repro_torch.launch import train
+    from repro_torch.models import make_model
+    from repro_torch.store import MemTier
+    from repro_torch.train import AdamWConfig, StepConfig, build_train_step, init_train_state
+
+    cfg = get_config("smollm-135m")
+    model = make_model(cfg)
+    store = train.build_data_store(8, 200_000, cfg.vocab_size, 0.01, 50e6)
+    loader = PrefetchingDataLoader(store, store.list_objects("data/"), [MemTier(8 << 20)],
+                                   LoaderConfig(seq_len=256, batch_size=8,
+                                                policy=IOPolicy(blocksize=256 << 10)))
+    try:
+        inputs, labels = next(iter(loader.batches(max_batches=1)))
+    finally:
+        loader.close()
+    batch = {"inputs": torch.from_numpy(inputs).cuda(), "labels": torch.from_numpy(labels).cuda()}
+    state = init_train_state(model, 0, device="cuda")
+    step = build_train_step(model, AdamWConfig(total_steps=40, warmup_steps=2),
+                            StepConfig(q_chunk=256, loss_chunk=256))
+    losses = []
+    for _ in range(OVERFIT_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    print(f"train, one batch {OVERFIT_STEPS} times: losses {[round(x, 4) for x in losses]}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] <= losses[0] - OVERFIT_FALL):
+        fail(f"training on one batch: the loss did not fall by {OVERFIT_FALL}")
+
+
+def phase_train_cross_check(torch, np) -> None:
+    """Two train steps of full-width smollm-135m from the same parameters
+    and batches on the card and on the host CPU, fp32 activations (the
+    card's bf16 matmuls and the CPU's round differently), batch 2 x 128:
+    loss and grad_norm held to CROSS_TOL. Parameters are made on the CPU and
+    copied, since a CUDA generator draws other numbers."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import make_model
+    from repro_torch.train import AdamWConfig, StepConfig, build_train_step, init_train_state
+
+    cfg = get_config("smollm-135m")
+    model = make_model(cfg)
+    step = build_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=40),
+                            StepConfig(q_chunk=128, loss_chunk=128))
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        host = init_train_state(model, 0, device="cpu")
+        card = tree.map_leaves(lambda t: t.to("cuda"), host)
+        rng = np.random.default_rng(7)
+        worst = 0.0
+        for i in range(2):
+            ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129)))
+            t0 = time.perf_counter()
+            host, mh = step(host, {"inputs": ids[:, :-1], "labels": ids[:, 1:]})
+            t_host = time.perf_counter() - t0
+            ids = ids.cuda()
+            card, mc = step(card, {"inputs": ids[:, :-1], "labels": ids[:, 1:]})
+            for key in ("loss", "grad_norm", "lr"):
+                a, b = float(mc[key]), float(mh[key])
+                rel = abs(a - b) / abs(b)
+                worst = max(worst, rel)
+                print(f"train cross-check step {i + 1} {key}: card {a!r}, host cpu {b!r}, "
+                      f"relative diff {rel:.3e} (tol {CROSS_TOL})")
+                if not (math.isfinite(a) and rel <= CROSS_TOL):
+                    fail(f"train step on the card disagrees with the host CPU on {key}")
+            print(f"train cross-check step {i + 1}: host cpu step {t_host:.2f} s")
+        diff = max((a.cpu() - b).abs().max().item()
+                   for a, b in zip(tree.flatten(card.params), tree.flatten(host.params)))
+        print(f"train cross-check: params after 2 steps max|diff| {diff:.3e} (printed only); "
+              f"worst metric relative diff {worst:.3e}")
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+
+
+def phase_train_profile(torch, np) -> None:
+    """Where a training step's time goes: the driver's step (full-width
+    smollm-135m, batch 8 x 256, bf16 activations, remat) on one fixed batch,
+    as host enqueue time against device time over 3 steps (CUDA events),
+    then `torch.profiler` over 2 steps: kernel launches, the device's busy
+    time by kernel and its idle share, and the host operators that cost the
+    most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.train import AdamWConfig, StepConfig, build_train_step, init_train_state
+
+    model = make_model(get_config("smollm-135m"))
+    state = init_train_state(model, 0, device="cuda")
+    step = build_train_step(model, AdamWConfig(total_steps=40, warmup_steps=2),
+                            StepConfig(q_chunk=256, loss_chunk=256))
+    ids = torch.from_numpy(np.random.default_rng(8).integers(0, 49152, (8, 257))).cuda()
+    batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:]}
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(3):
+        state, _ = step(state, batch)
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"train profile: host enqueue {host_ms:.1f} ms a step, device timeline "
+          f"{start.elapsed_time(end) / 3:.1f} ms, wall {wall_ms:.1f} ms (3 steps, no sync inside)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 2 * 1e3
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                                           "cudaLaunchKernelExC"))
+    kernels = sorted((e for e in events if e.device_type.name == "CUDA"),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    print(f"train profile (under the profiler): {launches / 2:.0f} kernel launches a step, "
+          f"device busy {busy_ms:.1f} ms of a {wall_ms:.1f} ms step "
+          f"(idle {1 - busy_ms / wall_ms:.1%})")
+    for e in kernels[:6]:
+        print(f"train profile: device {e.self_device_time_total / 1e3 / 2:.2f} ms a step "
+              f"({e.count // 2} calls): {e.key[:90]}")
+    hosts = sorted((e for e in events if e.device_type.name == "CPU"),
+                   key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in hosts[:6]:
+        print(f"train profile: host {e.self_cpu_time_total / 1e3 / 2:.1f} ms a step "
+              f"({e.count // 2} calls): {e.key[:90]}")
+
+
+def phase_train(torch, np, kernels: dict) -> None:
+    """Train full-width smollm-135m from the simulated object store through
+    the port's driver, resume from its step-20 checkpoint, time a restore
+    and a save of the TrainState, cross-check two steps against the host
+    CPU, and show that the kernels' entries refuse inputs that need grad.
+    The kernels' counts are set to 0 before the first run and must read 0
+    after the last: training takes the plain paths."""
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.io import open_store
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import make_model
+    from repro_torch.train import init_train_state
+
+    t_phase = time.perf_counter()
+    uri_a = TRAIN_CKPT_URI.format(bucket="train-a")
+    uri_b = TRAIN_CKPT_URI.format(bucket="train-b")
+    torch.cuda.synchronize()
+    for mod in kernels.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a = train.main(TRAIN_ARGS + ["--ckpt-store", uri_a])
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = a.losses
+    if len(losses) != 40 or not all(math.isfinite(x) for x in losses):
+        fail(f"training: {len(losses)} losses, finite: {all(map(math.isfinite, losses))}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-10:])
+    print(f"train losses (steps 1-40): {[round(x, 4) for x in losses]}")
+    print(f"train: mean loss of steps 1-5 {first:.4f}, of steps 31-40 {last:.4f} "
+          f"(uniform tokens: floor ln(49152) = {math.log(49152):.4f})")
+    if not last <= first + CLIMB_TOL:
+        fail("training: the loss climbed")
+    steady = a.step_ms[2:]          # the first steps allocate and warm cuBLAS
+    step_ms = statistics.median(steady)
+    tokens_step = 8 * 256
+    print(f"train: {a.tokens} tokens in {a.wall_s:.2f} s wall ({a.tokens / a.wall_s:.0f} tok/s "
+          f"with checkpoints and warm-up); median step {step_ms:.2f} ms on the device timeline "
+          f"(steps 3-40, min {min(steady):.2f}, max {max(steady):.2f}) = "
+          f"{tokens_step / step_ms * 1e3:.0f} tok/s")
+    print(f"train: feeder wait per step median {statistics.median(a.feeder_wait_s) * 1e3:.3f} ms, "
+          f"max {max(a.feeder_wait_s) * 1e3:.3f} ms, total {sum(a.feeder_wait_s):.3f} s; "
+          f"peak device memory {peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB held before")
+    totals = a.fs_stats["totals"]
+    print(f"train loader: {totals['store_requests']} store GETs, {totals['bytes_fetched']} bytes "
+          f"fetched, {totals['bytes_read']} bytes read by the loader")
+
+    # Resume: the step-20 checkpoint alone in a store of its own.
+    store_a, store_b = open_store(uri_a), open_store(uri_b)
+    nbytes = copy_step(store_a, store_b, "ckpt", 20)
+    b = train.main(TRAIN_ARGS + ["--ckpt-store", uri_b])
+    if b.start_step != 20 or len(b.losses) != 20:
+        fail(f"resume: started at {b.start_step} with {len(b.losses)} steps, want 20 and 20")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(b.losses, losses[20:]))
+    exact = b.losses == losses[20:]
+    print(f"train resume: restored {nbytes / 1e9:.3f} GB (step 20) in {b.restore_s:.3f} s, "
+          f"steps 21-40 losses {'bit for bit equal to' if exact else 'differ from'} the "
+          f"uninterrupted run's (max relative diff {rel:.3e}, tol {RESUME_TOL})")
+    if not rel <= RESUME_TOL:
+        fail("the resumed run's losses differ from the uninterrupted run's")
+    same = sum(store_a.backing.get(m.key) == store_b.backing.get(m.key)
+               for m in store_a.backing.list_objects("ckpt/step_00000040/")
+               if not m.key.endswith("MANIFEST.json"))
+    print(f"train resume: {same} of the step-40 TrainState's leaves byte-identical across "
+          f"the two runs")
+
+    # A TrainState restore and save at the store's speed, timed alone.
+    model = make_model(get_config("smollm-135m"))
+    template = init_train_state(model, 0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = restore_checkpoint(store_a, "ckpt", template, step=40, device="cuda")
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    del template
+    store_c = open_store(TRAIN_CKPT_URI.format(bucket="train-c"))
+    t0 = time.perf_counter()
+    save_checkpoint(store_c, "ckpt", 40, state)
+    t_save = time.perf_counter() - t0
+    print(f"train state: {nbytes / 1e9:.3f} GB; restore (rolling, onto the card) "
+          f"{t_restore:.3f} s, save (write-behind) {t_save:.3f} s at {uri_a}")
+    del state
+
+    phase_train_overfit(torch)
+    phase_train_cross_check(torch, np)
+    phase_train_profile(torch, np)
+    counts = {name: mod.launches for name, mod in kernels.items()}
+    print(f"train: kernel launches while training {counts} (want every one 0)")
+    if any(counts.values()):
+        fail(f"training launched a forward-only kernel: {counts}")
+
+    # The kernels' entries refuse a CUDA input that requires grad.
+    q = torch.randn((1, 2, 64, 64), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    x = torch.randn((1, 256, 2, 64), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    dt_a = -torch.rand((1, 256, 2), device="cuda")
+    bc = torch.randn((1, 256, 1, 64), device="cuda", dtype=torch.bfloat16)
+    for name, call in (("flash_attention", lambda: ops.flash_attention(q, q, q)),
+                       ("ssd_scan", lambda: ops.ssd_scan(x, dt_a, bc, bc))):
+        try:
+            call()
+        except RuntimeError as e:
+            print(f"train: ops.{name} on a CUDA input that requires grad raises: {e}")
+        else:
+            fail(f"ops.{name} took a CUDA input that requires grad")
+    if any(mod.launches for mod in kernels.values()):
+        fail("a refused call launched a kernel")
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -721,6 +1017,9 @@ def main() -> None:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     scan["launches"], _ = phase_serve(torch, np, cfg, model, params, kernels, "ssd_scan")
     phase_mamba_prefill_vs_decode(torch, np, ssd, cfg, model, params)
+    del params
+
+    phase_train(torch, np, kernels)
 
     rows = [flash, scan]
     for row in rows:

@@ -7,7 +7,9 @@ object under ``{prefix}/step_{N:08d}/`` as raw little-endian bytes, and
 the manifest (shape, numpy dtype name and digest per leaf) is written
 LAST and is the atomic commit point — a crash mid-save leaves no visible
 checkpoint. Leaves are numbered in the order `jax.tree_util` flattens a
-tree: dict keys sorted, at every level. Leaf bytes flow through
+tree (`repro_torch.tree`): dict keys sorted at every level, tuple and
+NamedTuple fields in order, so a port `TrainState` and the JAX package's
+number their leaves alike. Leaf bytes flow through
 ``PrefetchFS.open_write``: serializing leaf k+1 overlaps with uploading
 leaf k, and ``IOPolicy.write_depth`` part uploads run concurrently.
 
@@ -43,6 +45,8 @@ from repro_torch.io.integrity import block_digest, check_block
 from repro_torch.io.retry import Retrier, RetryPolicy
 from repro_torch.store.base import ObjectMeta, ObjectStore
 from repro_torch.store.tiers import CacheTier
+from repro_torch.tree import flatten as _flatten
+from repro_torch.tree import unflatten as _unflatten
 from repro_torch.utils import get_logger
 
 log = get_logger("ckpt")
@@ -95,24 +99,6 @@ def _dtype_from_str(name: str) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"checkpoint dtype {name!r} has no torch counterpart") from None
-
-
-def _flatten(state) -> list:
-    """Leaves of a tree of nested dicts, in `jax.tree_util`'s order: keys
-    sorted at every level (`torch.utils._pytree` would keep insertion
-    order and number the leaves differently)."""
-    if isinstance(state, dict):
-        return [leaf for k in sorted(state) for leaf in _flatten(state[k])]
-    return [state]
-
-
-def _unflatten(template, leaves):
-    """`template`'s structure, its leaves taken in `_flatten` order from
-    the iterator `leaves`; each dict keeps the template's key order."""
-    if not isinstance(template, dict):
-        return next(leaves)
-    filled = {k: _unflatten(template[k], leaves) for k in sorted(template)}
-    return {k: filled[k] for k in template}
 
 
 def _byte_view(t: torch.Tensor) -> np.ndarray:
@@ -314,8 +300,9 @@ def restore_checkpoint(
     shard: tuple[int, int] | None = None,
     device="cuda",
 ):
-    """Restore into the structure of `template` (nested dicts whose leaves
-    may be tensors or ``meta`` tensors: only the structure is used; shapes
+    """Restore into the structure of `template` (a tree of dicts, tuples and
+    NamedTuples, see `repro_torch.tree`, whose leaves may be tensors or
+    ``meta`` tensors: only the structure is used; shapes
     and dtypes come from the manifest). Returns (state, manifest), every
     leaf a new tensor on `device`. A CUDA device that cannot be reached
     raises; there is no CPU fallback.

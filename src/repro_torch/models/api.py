@@ -1,5 +1,5 @@
 """Model facade: one object per architecture config exposing
-spec/init/prefill/decode, as the JAX package's ``models/api.py`` does, for
+spec/init/loss/prefill/decode, as the JAX package's ``models/api.py`` does, for
 decoder-only configs of the ``(attn, dense)`` pattern and Mamba-2 configs
 (``(mamba, -)``, e.g. ``mamba2-1.3b``).
 
@@ -34,6 +34,14 @@ class Model:
 
     def param_count(self) -> int:
         return param_count(self.spec())
+
+    # -- training -------------------------------------------------------------
+    def loss(self, params, batch: dict, *, q_chunk: int = 512,
+             loss_chunk: int = 512, remat: bool = True) -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["inputs"]`` against
+        ``batch["labels"]`` (labels < 0 masked), differentiable in `params`."""
+        return LM.lm_loss(params, self.cfg, batch["inputs"], batch["labels"],
+                          q_chunk=q_chunk, loss_chunk=loss_chunk, remat=remat)
 
     # -- serving ---------------------------------------------------------------
     def prefill(self, params, batch: dict, *, q_chunk: int = 512):

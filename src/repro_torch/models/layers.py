@@ -4,9 +4,11 @@ The port of the JAX package's ``models/layers.py``, dense parts, with its
 layouts: activations are (B, S, H, D_h), ``wq`` is (d, Hq, D_h) and ``wo``
 is (Hq, D_h, d). Matmuls run in bf16 on fp32 parameters cast at use, with
 fp32 norm, softmax and score accumulation. Prefill attention (a query block
-at position 0 against an empty or absent cache) goes through
-`ops.flash_attention` (the flash kernel for CUDA tensors); every other case
-through the plain `_attn_core`. The Mamba mixer is in ``models/ssd.py``.
+at position 0 against an empty or absent cache) with no input that needs a
+gradient goes through `ops.flash_attention` (the flash kernel for CUDA
+tensors, forward only); every other case, training included, through the
+plain `_attn_core`, differentiable by autograd. The Mamba mixer is in
+``models/ssd.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -136,7 +139,9 @@ def _attn_core(
     q_chunk: int = 512,
 ) -> torch.Tensor:
     """Plain attention in query chunks, masking by absolute position and by
-    the valid cache length; the JAX package's kv_seq path."""
+    the valid cache length; the JAX package's kv_seq path. Under autograd
+    each chunk is recomputed in the backward pass (as `jax.checkpoint` per
+    chunk does), so no chunk's fp32 probabilities are kept."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -163,10 +168,13 @@ def _attn_core(
 
     if sq <= q_chunk:
         return chunk_attn(q, q_offset)
-    return torch.cat(
-        [chunk_attn(q[:, i:i + q_chunk], q_offset + i) for i in range(0, sq, q_chunk)],
-        dim=1,
-    )
+    remat = ops.needs_grad(q, k, v)
+    chunks = []
+    for i in range(0, sq, q_chunk):
+        args = (q[:, i:i + q_chunk], q_offset + i)
+        chunks.append(checkpoint(chunk_attn, *args, use_reentrant=False) if remat
+                      else chunk_attn(*args))
+    return torch.cat(chunks, dim=1)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -226,7 +234,9 @@ def attention(
             cache.k[:, cache.length:end] = k
             cache.v[:, cache.length:end] = v
             new_cache = KVCache(cache.k, cache.v, end)
-            if not prefill:
+            if prefill:
+                kv_len = None     # the new k/v are the whole cache
+            else:
                 k, v, kv_len = cache.k, cache.v, end
         else:
             kv_len = None
@@ -235,7 +245,9 @@ def attention(
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
 
-    if prefill:
+    # The kernel is forward only: a call that needs gradients (training)
+    # takes the plain path, as the JAX package's training does.
+    if prefill and not ops.needs_grad(q, k, v):
         # (B, S, H, D) -> (B, H, S, D) strided views; the kernel writes its
         # output in q's memory layout, so the transpose back is free.
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),

@@ -4,9 +4,11 @@ block patterns.
 The port of the JAX package's ``models/lm.py``. The layer stack is
 `cfg.periods` repetitions of the config's block pattern with parameters
 stacked on a leading periods axis; `stack_fwd` walks that axis in a Python
-loop. Decode caches (attention KV caches and Mamba conv/SSM states) are
-stacked the same way and updated in place. The MoE, cross-attention and
-encoder-decoder branches are not ported yet and raise.
+loop, each period recomputed in the backward pass when `remat` is set.
+Decode caches (attention KV caches and Mamba conv/SSM states) are stacked
+the same way and updated in place. The training loss is `lm_loss`: the
+hidden states, then `chunked_xent` over the output table. The MoE,
+cross-attention and encoder-decoder branches are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import layers as L
@@ -139,9 +142,13 @@ def make_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     return out
 
 
-def _index(tree: dict, i: int) -> dict:
-    """Period `i` of a stacked parameter tree, as views."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _unstack(tree: dict, n: int) -> list[dict]:
+    """The `n` periods of a stacked parameter tree, as views. One `unbind`
+    per leaf: under autograd a single backward op then gathers every
+    period's gradient, where indexing each period would build a gradient
+    of the whole stacked leaf per period and sum them."""
+    cols = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: col[i] for k, col in cols.items()} for i in range(n)]
 
 
 def stack_fwd(
@@ -153,14 +160,24 @@ def stack_fwd(
     caches: dict | None = None,
     update_cache: bool = False,
     q_chunk: int = 512,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """Run the periods in order over the residual stream. Each period's
     cache is a view into the stacked buffers, so the blocks' in-place
     updates land there directly; host-side fields (the KV length) are
-    taken from the last period's cache. Returns (x, new_caches)."""
+    taken from the last period's cache. Returns (x, new_caches).
+
+    `remat` (training, no caches) recomputes each period in the backward
+    pass instead of keeping its activations, as `jax.checkpoint(period_fn)`
+    does: the recompute reads the same period views of parameters that do
+    not change before the backward pass."""
+    if remat and caches is not None:
+        raise ValueError("remat recomputes periods in training, which updates no cache")
     host: dict = {}
-    for idx in range(cfg.periods):
-        pp = _index(p_stack, idx)
+    periods = _unstack(p_stack, cfg.periods)
+
+    def period(x: torch.Tensor, idx: int) -> torch.Tensor:
+        pp = periods[idx]
         for i, bd in enumerate(cfg.pattern):
             name = f"block{i}"
             pc = None if caches is None else {
@@ -175,6 +192,10 @@ def stack_fwd(
                 q_chunk=q_chunk,
             )
             host[name] = {key: _host_fields(c) for key, c in nc.items()}
+        return x
+
+    for idx in range(cfg.periods):
+        x = checkpoint(period, x, idx, use_reentrant=False) if remat else period(x, idx)
     if caches is None:
         return x, None
     return x, {
@@ -184,7 +205,7 @@ def stack_fwd(
 
 
 # --------------------------------------------------------------------------- #
-# LM spec + forward
+# LM spec + forward + loss
 # --------------------------------------------------------------------------- #
 def lm_spec(cfg: ModelConfig) -> dict:
     return {
@@ -205,7 +226,7 @@ def lm_inputs_to_hidden(p: dict, cfg: ModelConfig, inputs: torch.Tensor) -> torc
 def lm_hidden(
     p: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     start: int = 0, caches: dict | None = None, update_cache: bool = False,
-    q_chunk: int = 512,
+    q_chunk: int = 512, remat: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """`start` is the global position of inputs[:, 0]."""
     x = lm_inputs_to_hidden(p, cfg, inputs)
@@ -215,6 +236,7 @@ def lm_hidden(
         caches=caches,
         update_cache=update_cache,
         q_chunk=q_chunk,
+        remat=remat,
     )
     return L.apply_norm(p["final_norm"], cfg, x), new_caches
 
@@ -228,6 +250,43 @@ def logits_from_hidden(p: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tens
     if v_pad != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits
+
+
+def chunked_xent(
+    p: dict, cfg: ModelConfig, h: torch.Tensor, labels: torch.Tensor,
+    *, chunk: int = 512,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing (B, S, V) at
+    once: fp32 logits one (B, chunk) slice at a time. labels < 0 are
+    masked out."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {chunk}")
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, chunk):
+        l_c = labels[:, i:i + chunk]
+        logits = logits_from_hidden(p, cfg, h[:, i:i + chunk])     # (B, C, V) fp32
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, l_c.clamp_min(0)[..., None].long())[..., 0]
+        valid = (l_c >= 0).float()
+        loss_sum = loss_sum + ((lse - picked) * valid).sum()
+        count = count + valid.sum()
+    return loss_sum / count.clamp_min(1.0)
+
+
+def lm_loss(
+    p: dict, cfg: ModelConfig, inputs: torch.Tensor, labels: torch.Tensor,
+    *, q_chunk: int = 512, loss_chunk: int = 512, remat: bool = True,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy of a batch (a 0-d fp32 tensor). The
+    reference adds a Switch auxiliary term for MoE configs, which are not
+    ported yet."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
+    h, _ = lm_hidden(p, cfg, inputs, q_chunk=q_chunk, remat=remat)
+    return chunked_xent(p, cfg, h, labels, chunk=loss_chunk)
 
 
 # --------------------------------------------------------------------------- #

@@ -3,10 +3,13 @@
 The port of the JAX package's ``models/ssd.py``. Prefill (S > 1) runs the
 chunked scan through `ops.ssd_scan`: the CUDA kernel for CUDA tensors, its
 plain version (`ssd_chunked`, re-exported here with `segsum` under the
-reference's names) for CPU tensors. A decode step (S == 1 with a cache)
-is the plain recurrence `ssd_decode_step`, as in the reference. Matmuls run
-in the activations' dtype (bf16) on fp32 parameters cast at use; the scan,
-its state and the gated norm's statistics are fp32.
+reference's names) for CPU tensors. The kernel is forward only, so a call
+that needs gradients (training) runs `ssd_chunked` itself, differentiable
+by autograd, as the JAX package's training does. A decode step (S == 1
+with a cache) is the plain recurrence `ssd_decode_step`, as in the
+reference. Matmuls run in the activations' dtype (bf16) on fp32
+parameters cast at use; the scan, its state and the gated norm's
+statistics are fp32.
 """
 
 from __future__ import annotations
@@ -171,9 +174,14 @@ def mamba_block(
             dt_a = F.pad(dt_a, (0, 0, 0, pad))
             bg = F.pad(bg, (0, 0, 0, 0, 0, pad))
             cg = F.pad(cg, (0, 0, 0, 0, 0, pad))
-        y_full, new_ssm = ops.ssd_scan(
-            x_scaled.to(dt), dt_a, bg, cg, chunk=cfg.ssm_chunk,
-            initial_state=cache.ssm if cache is not None else None)
+        init = cache.ssm if cache is not None else None
+        x_scaled = x_scaled.to(dt)
+        if ops.needs_grad(x_scaled, dt_a, bg, cg):
+            y_full, new_ssm = ssd_chunked(x_scaled, dt_a, bg, cg, cfg.ssm_chunk,
+                                          initial_state=init)
+        else:
+            y_full, new_ssm = ops.ssd_scan(x_scaled, dt_a, bg, cg, chunk=cfg.ssm_chunk,
+                                           initial_state=init)
         y = y_full[:, :s]
 
     y = y + xh * p["d_skip"].to(dt)[None, None, :, None]

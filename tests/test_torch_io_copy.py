@@ -10,6 +10,7 @@ named beside each take the place of this check."""
 
 from __future__ import annotations
 
+import ast
 import difflib
 import os
 import re
@@ -32,6 +33,8 @@ COPIED = [
     # Equal after the rename: it re-exports the copied hashing and timing
     # helpers beside the port's own logging.
     "utils/__init__.py",
+    # The token-shard codec (numpy only).
+    "data/tokens.py",
 ]
 
 # Modules that differ from the reference, why, and what checks them instead.
@@ -43,8 +46,18 @@ DIFFERENT = {
     "io/stores.py": "peer scheme",
     # store/faults.py is not copied, so neither are its exports.
     "store/__init__.py": "no faults",
-    # Rewritten for torch (tests/test_torch_ckpt.py).
+    # Rewritten for torch; trees walk tuples and NamedTuples too
+    # (tests/test_torch_ckpt.py, tests/test_torch_restart.py).
     "ckpt/manager.py": "torch",
+    # The loader's classes are the reference's (below); the device feeder
+    # is rewritten for torch (tests/test_torch_data.py).
+    "data/loader.py": "torch DeviceFeeder",
+    # data/trk.py (the streamline codec) is a later slice, so are its exports.
+    "data/__init__.py": "no trk",
+    # RestartManager restores onto its `device` (tests/test_torch_restart.py).
+    "ft/restart.py": "restore device",
+    # ft/elastic.py (resharding) is part of the sharding slice.
+    "ft/__init__.py": "no elastic",
 }
 
 
@@ -101,15 +114,47 @@ def test_stores_differs_only_by_the_peer_scheme():
 
 def test_every_copied_module_is_accounted_for():
     """No module of the copied packages is left out of both lists, and the
-    modules left for later slices (store/faults.py, the peer tier) are
-    absent."""
+    modules left for later slices (store/faults.py, the peer tier,
+    data/trk.py, ft/elastic.py) are absent."""
     listed = set(COPIED) | set(DIFFERENT)
-    for pkg in ("io", "core", "store", "ckpt"):
+    for pkg in ("io", "core", "store", "ckpt", "data", "ft"):
         for name in os.listdir(os.path.join(PORT, pkg)):
             if name.endswith(".py"):
                 assert f"{pkg}/{name}" in listed, f"{pkg}/{name}"
-    assert not os.path.exists(os.path.join(PORT, "store", "faults.py"))
-    assert not os.path.exists(os.path.join(PORT, "peer"))
+    for later in ("store/faults.py", "peer", "data/trk.py", "ft/elastic.py"):
+        assert not os.path.exists(os.path.join(PORT, later)), later
+
+
+def _definitions(source: str) -> dict[str, str]:
+    tree = ast.parse(source)
+    return {node.name: ast.get_source_segment(source, node) for node in tree.body
+            if isinstance(node, (ast.ClassDef, ast.FunctionDef))}
+
+
+def test_loader_differs_only_by_the_device_feeder():
+    """loader.py keeps the reference's LoaderConfig, DataCursor and
+    PrefetchingDataLoader, source for source; only DeviceFeeder (and the
+    imports it needs) is the port's own."""
+    want, got = _definitions(_renamed_reference("data/loader.py")), \
+        _definitions(_port("data/loader.py"))
+    assert sorted(want) == sorted(got)
+    for name in want:
+        if name != "DeviceFeeder":
+            assert got[name] == want[name], name
+    assert got["DeviceFeeder"] != want["DeviceFeeder"]
+
+
+def test_restart_differs_only_by_the_restore_device():
+    """restart.py is the reference with RestartManager's `device` field,
+    its docstring, and the restore call passing it on."""
+    want = _renamed_reference("ft/restart.py")
+    got = _port("ft/restart.py")
+    got = got.replace(
+        '\n\n    ``device`` is where restores put the state (the GPU unless the caller\n'
+        '    asks for the CPU)."""', '"""')
+    got = got.replace('    device: str = "cuda"\n', "")
+    got = got.replace("            device=self.device,\n", "")
+    assert got == want
 
 
 def test_peer_scheme_is_unknown_to_the_port():
