@@ -20,7 +20,7 @@ Phases, each of which exits non-zero on a failed check:
      prefill attention went through the flash kernel;
   3b. the Mamba path: full-width mamba2-1.3b served the same way; every
      layer's prefill scan must go through the SSD kernel;
-  4. / 4b. for each model, last-position logits of one prompt prefilled
+  3e. after 3 and after 3b, for each model, last-position logits of one prompt prefilled
      through the kernel against the same prompt half prefilled, half
      decoded token by token through the plain decode path over the cache
      (for mamba2-1.3b held in fp32 activations, printed in bf16);
@@ -48,6 +48,18 @@ Phases, each of which exits non-zero on a failed check:
      kernels' entries must refuse a CUDA input that requires grad.
      Tokens/s, step ms, the feeder's wait, peak memory, save and restore
      seconds, and the loader's GETs and bytes printed;
+  4. the paper's two use cases (examples/torch/streamline_analysis.py):
+     the streamline-length histogram and bundle recognition on the card,
+     read through the example's simulated store (20 ms a request, 45 MB/s)
+     over the example's dataset (4 shards, 2.3 MB) and a larger one (8
+     shards of 10,000 streamlines, 39 MB); warm-up, sequential, then
+     rolling, whose results must be identical; seconds, speed-up, GETs,
+     bytes and the wait on the reader printed, and the card's idle share
+     from its work replayed alone. The larger dataset's runs on the host
+     CPU must agree with the card's: lengths within 1e-5 relative, the
+     same bin and label for every row not within 1e-4 of a bin edge, of
+     the threshold or of a tie. Then examples/torch/train_lm_e2e.py at its
+     defaults in a process of its own must exit 0 with its OK line;
   5. a JSON line of the kernels' numbers, then the result line.
 
 Needs a CUDA device and the repository's src/ beside this file.
@@ -949,6 +961,179 @@ def phase_train(torch, np, kernels: dict) -> None:
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 4: the paper's use cases. The example's dataset, and a larger one
+# (8 shards of 10,000 streamlines, 40 points on average, about 39 MB) read
+# through the example's store (20 ms a request, 45 MB/s). The paper's
+# dataset is 500 GB, which one pass at 45 MB/s would take about 3 h over.
+LARGE_TRK = dict(seed=2, shards=8, streamlines=10_000, mean_points=40)
+LENGTH_RTOL = 1e-5     # card vs host, fp32 sums in another order
+EDGE_RTOL = 1e-4       # a length this near a bin edge may fall either side
+LABEL_TOL = 1e-4       # a distance this near 8.0, or the other distance, likewise
+
+
+def load_example(name: str):
+    """A script under examples/torch/ as a module, without running it."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bin_of(np, x, edges):
+    """np.histogram's bin of each value (the last bin holds its right edge)."""
+    return np.minimum(np.searchsorted(edges, x, side="right") - 1, len(edges) - 2)
+
+
+def near_an_edge(np, x, edges):
+    return np.any(np.abs(x[:, None] - edges[None, :]) <= EDGE_RTOL * np.abs(edges[None, :]),
+                  axis=1)
+
+
+def check_histograms(np, card, host) -> None:
+    """The card's lengths within LENGTH_RTOL of the host's, and every row's
+    bin the same, except rows near a bin edge of either side."""
+    a = card.values.cpu().numpy().astype(np.float64)
+    b = host.values.numpy().astype(np.float64)
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    if not err <= LENGTH_RTOL:
+        fail(f"histogram: card and host lengths differ by {err:.3e} relative (tol {LENGTH_RTOL})")
+    ea, eb = np.histogram_bin_edges(a, bins=len(card.result)), \
+        np.histogram_bin_edges(b, bins=len(host.result))
+    exempt = near_an_edge(np, a, ea) | near_an_edge(np, b, eb)
+    moved = int(np.sum(bin_of(np, a, ea)[~exempt] != bin_of(np, b, eb)[~exempt]))
+    diff = int(np.abs(card.result - host.result).sum())
+    print(f"use cases, large, histogram, card vs host: lengths max relative diff {err:.3e} "
+          f"(tol {LENGTH_RTOL}); {int(exempt.sum())} of {len(a)} rows within {EDGE_RTOL} of a "
+          f"bin edge (exempt); {moved} other rows in another bin; counts differ by {diff}")
+    if moved or (diff and not exempt.any()):
+        fail("histogram: card and host bins differ")
+
+
+def check_labels(torch, np, sa, card, host) -> None:
+    """The card's labels equal the host's, except rows whose best distance
+    lies within LABEL_TOL of the threshold or whose two distances lie within
+    LABEL_TOL of each other."""
+    if not torch.equal(card.values.cpu(), host.values):
+        fail("bundle: the resampled points differ between card and host")
+    d_cst, d_arc = sa.distances(host.values, *sa.references("cpu"))
+    d_cst, d_arc = d_cst.numpy(), d_arc.numpy()
+    exempt = (np.abs(np.minimum(d_cst, d_arc) - sa.THRESHOLD) < LABEL_TOL) | \
+        (np.abs(d_cst - d_arc) < LABEL_TOL)
+    differ = card.result != host.result
+    counts = np.bincount(host.result, minlength=3)
+    print(f"use cases, large, bundle, card vs host: labels {counts.tolist()} (0/1/2) on the "
+          f"host; {int(exempt.sum())} of {len(exempt)} rows within {LABEL_TOL} of the threshold "
+          f"or a tie (exempt); {int(differ.sum())} labels differ, {int((differ & ~exempt).sum())} "
+          f"of them outside the exempt rows")
+    if (differ & ~exempt).any():
+        fail("bundle: card and host labels differ")
+
+
+def device_share(torch, np, sa, objects: dict, card: dict) -> None:
+    """The card's share of the large dataset's rolling runs: the same device
+    work (host-to-device copies and compute, batch for batch) replayed from
+    memory between CUDA events, against each run's seconds."""
+    import io
+
+    from repro_torch.data.trk import iter_streamlines_multi
+
+    blob = b"".join(objects[k] for k in sorted(objects))
+    points = [sl.points for sl in iter_streamlines_multi(io.BytesIO(blob), len(blob))]
+    pts = np.zeros((len(points), sa.MAX_POINTS, 3), np.float32)
+    n_pts = np.zeros(len(points), np.int64)
+    for i, p in enumerate(points):
+        n = min(len(p), sa.MAX_POINTS)
+        pts[i, :n], n_pts[i] = p[:n], n
+    resampled = sa.resample_batch(points)
+    ref_cst, ref_arc = sa.references("cuda")
+
+    def histogram_work():
+        for i in range(0, len(pts), sa.BATCH):
+            sa.lengths_of(torch.from_numpy(pts[i:i + sa.BATCH]).to("cuda"),
+                          torch.from_numpy(n_pts[i:i + sa.BATCH]).to("cuda"))
+
+    def bundle_work():
+        sa.classify(torch.from_numpy(resampled).to("cuda"), ref_cst, ref_arc).cpu()
+
+    for usecase, work in (("histogram", histogram_work), ("bundle", bundle_work)):
+        work()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        work()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        run_s = card["large", usecase].seconds
+        print(f"use cases, large, {usecase}: the card's work (copies and compute) replayed "
+              f"alone takes {ms:.3f} ms, {ms / 1e3 / run_s:.3%} of the rolling run's "
+              f"{run_s:.3f} s: the card is idle {1 - ms / 1e3 / run_s:.2%} of it")
+
+
+def phase_usecases(torch, np) -> None:
+    """The paper's two use cases (examples/torch/streamline_analysis.py) on
+    the card, sequential against rolling, over the example's dataset and a
+    larger one; the larger on the host CPU too, held against the card; then
+    the training example (examples/torch/train_lm_e2e.py) at its defaults in
+    a process of its own."""
+    from repro_torch.data.trk import synth_trk
+
+    t_phase = time.perf_counter()
+    sa = load_example("streamline_analysis")
+    rng = np.random.default_rng(LARGE_TRK["seed"])
+    large = {f"large/shard{i}.trk": synth_trk(rng, LARGE_TRK["streamlines"],
+                                               mean_points=LARGE_TRK["mean_points"])
+             for i in range(LARGE_TRK["shards"])}
+    card = {}
+    for dname, objects in (("example", sa.example_dataset()), ("large", large)):
+        print(f"use cases, {dname}: {len(objects)} shards, "
+              f"{sum(map(len, objects.values()))} bytes at {sa.STORE_URI}")
+        for usecase, fn in sa.USE_CASES.items():
+            fn("rolling", "cuda", objects)   # warm-up
+            seq = fn("sequential", "cuda", objects)
+            roll = fn("rolling", "cuda", objects)
+            for mode, run in (("sequential", seq), ("rolling", roll)):
+                if run.values.device.type != "cuda":
+                    fail(f"{usecase}: its tensors lie on {run.values.device}, not the card")
+                print(f"use cases, {dname}, {usecase}, {mode}: {run.seconds:.3f} s, "
+                      f"{run.store_gets} GETs, {run.bytes_fetched} bytes, waiting on the reader "
+                      f"{run.read_wait_s:.3f} s ({run.read_wait_s / run.seconds:.1%} of the loop)")
+            same = np.array_equal(seq.result, roll.result)
+            print(f"use cases, {dname}, {usecase}: speed-up {seq.seconds / roll.seconds:.3f}x; "
+                  f"results identical: {same}; values bit-equal: "
+                  f"{torch.equal(seq.values, roll.values)}")
+            if not same:
+                fail(f"{usecase} ({dname}): sequential and rolling results differ")
+            card[dname, usecase] = roll
+
+    device_share(torch, np, sa, large, card)
+
+    for usecase, fn in sa.USE_CASES.items():
+        host = fn("rolling", "cpu", large)
+        print(f"use cases, large, {usecase}, host CPU, rolling: {host.seconds:.3f} s")
+        if usecase == "histogram":
+            check_histograms(np, card["large", usecase], host)
+        else:
+            check_labels(torch, np, sa, card["large", usecase], host)
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "torch",
+                                                       "train_lm_e2e.py")],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    for line in res.stdout.strip().splitlines():
+        print(f"train_lm_e2e: {line}")
+    print(f"train_lm_e2e: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
+    if res.returncode != 0 or "\nOK: " not in "\n" + res.stdout:
+        print(res.stderr[-3000:], file=sys.stderr)
+        fail("examples/torch/train_lm_e2e.py failed on the card")
+    print(f"use-case phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1020,6 +1205,7 @@ def main() -> None:
     del params
 
     phase_train(torch, np, kernels)
+    phase_usecases(torch, np)
 
     rows = [flash, scan]
     for row in rows:

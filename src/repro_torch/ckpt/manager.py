@@ -323,9 +323,13 @@ def restore_checkpoint(
 
     ``shard=(host_id, num_hosts)`` makes the restore mesh-aware: before
     the full stream, the host warms ONLY its rendezvous-owned sub-plan
-    (`BlockPlan.shard`) into the cache, and ``keep_cached`` is forced so
-    the warmed blocks stay servable. Without a peer store (a later slice
-    of the port) the shard warm pass is correct, just not shared.
+    (`BlockPlan.shard`) into the cache — the exact blocks its siblings'
+    peer layers will route to it — and ``keep_cached`` is forced so the
+    warmed blocks stay servable. Over a ``peer://`` store, every host
+    then restores the full state while the backing store is read ~once
+    in aggregate: each block's WAN fetch happens on its one home host,
+    everything else moves over the LAN. Without a peer store the shard
+    warm pass is still correct, just not shared.
 
     The time the restore spent waiting on the reader, checking digests,
     copying into host memory and waiting on host-to-device copies is

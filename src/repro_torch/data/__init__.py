@@ -9,6 +9,14 @@ from repro_torch.data.tokens import (
     synth_token_shard,
     write_token_shard,
 )
+from repro_torch.data.trk import (
+    LazyTrkReader,
+    Streamline,
+    TrkHeader,
+    iter_streamlines_multi,
+    synth_trk,
+    write_trk,
+)
 
 __all__ = [
     "DataCursor",
@@ -18,4 +26,10 @@ __all__ = [
     "TokenStreamReader",
     "synth_token_shard",
     "write_token_shard",
+    "LazyTrkReader",
+    "Streamline",
+    "TrkHeader",
+    "iter_streamlines_multi",
+    "synth_trk",
+    "write_trk",
 ]

@@ -128,10 +128,21 @@ class PrefetchFS:
             if index is None:
                 index = self.store.index
             self.store = self.store.inner
-        # A `peer://` composite store (the JAX package's peer tier) is a
-        # later slice of the port: no store opened here carries a peer
-        # hierarchy, so there is no peer telemetry to fold into stats().
-        self._peer_store = None
+        # A `peer://` composite store likewise carries a hierarchy —
+        # adopt it — but unlike HSM the store itself stays in place:
+        # ownership routing (home-host fetch vs direct GET) lives in the
+        # wrapper's get_range/get_ranges, so engines must keep reading
+        # through it. Imported lazily: repro_torch.peer depends on
+        # repro_torch.io.retry, so an eager import here would close the cycle
+        # for whichever package is imported first.
+        from repro_torch.peer.store import PeerAwareStore
+        self._peer_store: PeerAwareStore | None = None
+        if isinstance(self.store, PeerAwareStore):
+            self._peer_store = self.store
+            if tiers is None and self.store.tiers:
+                tiers = self.store.tiers
+            if index is None and self.store.index is not None:
+                index = self.store.index
         self.policy = policy if policy is not None else IOPolicy()
         self._tiers: list[CacheTier] | None = (
             list(tiers) if tiers is not None else None

@@ -264,3 +264,20 @@ def _open_hsm(uri: StoreURI) -> ObjectStore:
 
     return build_hsm(uri, open_inner=open_store)
 
+
+@register_store("peer")
+def _open_peer(uri: StoreURI) -> ObjectStore:
+    """Composite distributed-prefetch store::
+
+        peer://?self=0&peers=0@127.0.0.1:9100,1@127.0.0.1:9101
+              &backing=sims3%3A%2F%2Fbucket%3Flatency_ms%3D40
+
+    Routes block reads to their rendezvous-hashed home host before
+    touching the backing store; composes with ``hsm://`` via a
+    percent-encoded ``backing=`` (the peer layer adopts that hierarchy).
+    See `repro_torch.peer.store.build_peer` for the full parameter grammar and
+    README "Distributed prefetch" for the protocol.
+    """
+    from repro_torch.peer.store import build_peer
+
+    return build_peer(uri, open_inner=open_store)

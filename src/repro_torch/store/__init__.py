@@ -6,6 +6,15 @@ from repro_torch.store.base import (
     ThrottleError,
     TransientStoreError,
 )
+from repro_torch.store.faults import (
+    ALL_OPS,
+    META_OPS,
+    READ_OPS,
+    WRITE_OPS,
+    FaultRule,
+    FaultSchedule,
+    FaultyStore,
+)
 from repro_torch.store.hsm import (
     AdmissionPolicy,
     HSMIndex,
@@ -26,9 +35,16 @@ from repro_torch.store.tiers import (
 )
 
 __all__ = [
+    "ALL_OPS",
+    "META_OPS",
+    "READ_OPS",
+    "WRITE_OPS",
     "BlockMeta",
     "CacheFlight",
     "CacheIndex",
+    "FaultRule",
+    "FaultSchedule",
+    "FaultyStore",
     "MultipartUpload",
     "ObjectStore",
     "ObjectMeta",

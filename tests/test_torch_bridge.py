@@ -1,6 +1,6 @@
 """Carrying JAX parameters into the port, and the port's isolation from the
-JAX package: nothing under src/repro_torch/, nor chip_smoke.py, imports
-`jax`, `ml_dtypes` or `repro`."""
+JAX package: nothing under src/repro_torch/, nor examples/torch/, nor
+chip_smoke.py, imports `jax`, `ml_dtypes` or `repro`."""
 
 from __future__ import annotations
 
@@ -49,6 +49,8 @@ def test_tensors_are_writable_copies():
 
 def _port_files() -> list[str]:
     out = [os.path.join(REPO, "chip_smoke.py")]
+    examples = os.path.join(REPO, "examples", "torch")
+    out += [os.path.join(examples, f) for f in os.listdir(examples) if f.endswith(".py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -75,7 +77,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.kernels.ops, repro_torch.bridge, repro_torch.ckpt, repro_torch.io, "
             "repro_torch.core, repro_torch.store, repro_torch.utils, repro_torch.tree, "
-            "repro_torch.train, repro_torch.data, repro_torch.ft, repro_torch.launch.train; "
+            "repro_torch.train, repro_torch.data, repro_torch.ft, repro_torch.launch.train, "
+            "repro_torch.peer, repro_torch.peer.sim, repro_torch.data.trk, repro_torch.store.faults; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')))")
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}

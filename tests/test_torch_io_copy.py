@@ -1,10 +1,12 @@
 """The port's copies of the JAX package's framework-free modules (the
-PrefetchFS I/O stack, the store and cache tiers, the prefetch engines, the
-hashing and timing helpers) have not drifted from the reference: after the
+PrefetchFS I/O stack, the store and cache tiers, the fault-injection store,
+the peer tier, the prefetch engines, the hashing and timing helpers, the
+token and streamline codecs) have not drifted from the reference: after the
 ``repro.`` -> ``repro_torch.`` rename each source equals the reference's, so
-the reference's own I/O tests (tests/test_rolling_prefetch.py,
+the reference's own tests (tests/test_rolling_prefetch.py,
 test_io_facade.py, test_cache_tiers.py, test_write_pipeline.py,
-test_integrity.py, test_hsm.py, test_adaptive_read.py) vouch for the
+test_integrity.py, test_hsm.py, test_adaptive_read.py, test_resilience.py,
+test_peer.py, test_multihost.py, test_codecs_property.py) vouch for the
 copies. A short list of modules differs on purpose; the behaviour tests
 named beside each take the place of this check."""
 
@@ -33,27 +35,26 @@ COPIED = [
     # Equal after the rename: it re-exports the copied hashing and timing
     # helpers beside the port's own logging.
     "utils/__init__.py",
-    # The token-shard codec (numpy only).
-    "data/tokens.py",
+    # The token-shard and streamline codecs (numpy only), and the data
+    # package's exports of both beside the port's loader.
+    "data/tokens.py", "data/trk.py", "data/__init__.py",
+    # The fault-injection store and the store package's exports.
+    "store/faults.py", "store/__init__.py",
+    # The peer tier, and the facade's hooks for it: PrefetchFS adopts a
+    # PeerAwareStore's hierarchy, and `peer://` opens one.
+    "peer/protocol.py", "peer/client.py", "peer/group.py", "peer/server.py",
+    "peer/tier.py", "peer/store.py", "peer/sim.py", "peer/__init__.py",
+    "io/fs.py", "io/stores.py",
 ]
 
 # Modules that differ from the reference, why, and what checks them instead.
 DIFFERENT = {
-    # The peer tier is a later slice: no lazy import of PeerAwareStore, the
-    # peer store is always None (tests/test_torch_ckpt.py, test_torch_serve.py).
-    "io/fs.py": "peer hook",
-    # No `peer://` scheme: it raises the unknown-scheme error (below).
-    "io/stores.py": "peer scheme",
-    # store/faults.py is not copied, so neither are its exports.
-    "store/__init__.py": "no faults",
     # Rewritten for torch; trees walk tuples and NamedTuples too
     # (tests/test_torch_ckpt.py, tests/test_torch_restart.py).
     "ckpt/manager.py": "torch",
     # The loader's classes are the reference's (below); the device feeder
     # is rewritten for torch (tests/test_torch_data.py).
     "data/loader.py": "torch DeviceFeeder",
-    # data/trk.py (the streamline codec) is a later slice, so are its exports.
-    "data/__init__.py": "no trk",
     # RestartManager restores onto its `device` (tests/test_torch_restart.py).
     "ft/restart.py": "restore device",
     # ft/elastic.py (resharding) is part of the sharding slice.
@@ -86,42 +87,15 @@ def test_listed_modules_differ_from_reference(rel):
     assert _port(rel) != _renamed_reference(rel)
 
 
-PEER_STAND_IN = """\
-        # A `peer://` composite store (the JAX package's peer tier) is a
-        # later slice of the port: no store opened here carries a peer
-        # hierarchy, so there is no peer telemetry to fold into stats().
-        self._peer_store = None
-"""
-
-
-def test_fs_differs_only_by_the_peer_hook():
-    """fs.py is the reference with its lazy peer-store adoption replaced by
-    a peer store that is always None."""
-    want = _renamed_reference("io/fs.py")
-    start = want.index("        # A `peer://` composite store likewise")
-    end = want.index("        self.policy = policy if policy is not None else IOPolicy()")
-    assert "PeerAwareStore" in want[start:end]
-    assert _port("io/fs.py") == want[:start] + PEER_STAND_IN + want[end:]
-
-
-def test_stores_differs_only_by_the_peer_scheme():
-    """stores.py is the reference without its last factory, `peer://`."""
-    want = _renamed_reference("io/stores.py")
-    cut = want.index('\n\n@register_store("peer")')
-    assert want[cut:].count("@register_store") == 1
-    assert _port("io/stores.py") == want[:cut] + "\n"
-
-
 def test_every_copied_module_is_accounted_for():
     """No module of the copied packages is left out of both lists, and the
-    modules left for later slices (store/faults.py, the peer tier,
-    data/trk.py, ft/elastic.py) are absent."""
+    module left for a later slice (ft/elastic.py) is absent."""
     listed = set(COPIED) | set(DIFFERENT)
-    for pkg in ("io", "core", "store", "ckpt", "data", "ft"):
+    for pkg in ("io", "core", "store", "ckpt", "data", "ft", "peer"):
         for name in os.listdir(os.path.join(PORT, pkg)):
             if name.endswith(".py"):
                 assert f"{pkg}/{name}" in listed, f"{pkg}/{name}"
-    for later in ("store/faults.py", "peer", "data/trk.py", "ft/elastic.py"):
+    for later in ("ft/elastic.py",):
         assert not os.path.exists(os.path.join(PORT, later)), later
 
 
@@ -156,9 +130,3 @@ def test_restart_differs_only_by_the_restore_device():
     got = got.replace("            device=self.device,\n", "")
     assert got == want
 
-
-def test_peer_scheme_is_unknown_to_the_port():
-    from repro_torch.io import open_store
-
-    with pytest.raises(ValueError, match="unknown store scheme 'peer'"):
-        open_store("peer://?self=0&peers=0@127.0.0.1:9100")
