@@ -24,6 +24,19 @@ Phases, each of which exits non-zero on a failed check:
      through the kernel against the same prompt half prefilled, half
      decoded token by token through the plain decode path over the cache
      (for mamba2-1.3b held in fp32 activations, printed in bf16);
+  3f. the MoE path (after 3b): full-width granite-moe-3b-a800m (40 experts
+     padded to 48, top-8) served the same way, every layer's prefill
+     attention through the flash kernel and the scan never; its parameter
+     and active counts, memory, and capacities printed; a decode step
+     profiled (host enqueue, device busy, launches, top kernels). Then 3e
+     on a drop-free copy of it (capacity factor = expert count: a batched
+     prefill drops tokens over capacity, a decode step never does); granite
+     cut to 2 layers on the card and on the host CPU from one set of
+     weights, prefill logits of 2 prompts of 128, `lm_loss` with its aux
+     term and the router and expert gradients held in fp32 activations,
+     bf16 and the share of routing decisions that agree printed; and
+     reduced jamba-1.5-large-398b (attention, Mamba and MoE blocks in one
+     stack, both kernels) on the card against the host;
   3c. restore: full-width smollm-135m weights published to a simulated
      object store (10 ms a request, 160 MB/s) and restored onto the card
      with rolling prefetch (through `ServeEngine.from_store`, which then
@@ -67,6 +80,8 @@ Needs a CUDA device and the repository's src/ beside this file.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import logging
 import math
@@ -103,6 +118,13 @@ FLASH_CASES = [
     (2, 3, 1, 12, 12, 16, True, "bfloat16"),
     (4, 9, 3, 128, 128, 64, True, "bfloat16"),
     (8, 9, 3, 512, 512, 64, True, "bfloat16"),
+    # ... granite-moe-3b-a800m's serving waves and its fp32 cross-check, and
+    # reduced jamba's attention block ...
+    (8, 24, 8, 512, 512, 64, True, "bfloat16"),
+    (4, 24, 8, 128, 128, 64, True, "bfloat16"),
+    (2, 24, 8, 128, 128, 64, True, "float32"),
+    (2, 4, 1, 64, 64, 16, True, "bfloat16"),
+    (2, 4, 1, 64, 64, 16, True, "float32"),
     # ... and the bf16 tensor-core kernel's paths: head dims 16, 32 and
     # 128, causal Sq != Sk, ragged non-causal.
     (1, 4, 2, 256, 256, 16, True, "bfloat16"),
@@ -113,6 +135,7 @@ FLASH_CASES = [
 ]
 SLICE_SHAPE = (8, 9, 3, 512, 512, 64, True, "bfloat16")
 WAVE2_SHAPE = (4, 9, 3, 128, 128, 64, True, "bfloat16")
+GRANITE_SHAPE = (8, 24, 8, 512, 512, 64, True, "bfloat16")
 SSD_CASES = [
     # (b, s, h, g, p, n, chunk, dtype): the JAX package's test sweep ...
     (1, 128, 4, 1, 32, 32, 32, "float32"),
@@ -125,6 +148,9 @@ SSD_CASES = [
     (8, 512, 64, 1, 64, 128, 256, "bfloat16"),
     (4, 256, 64, 1, 64, 128, 256, "bfloat16"),
     (2, 512, 8, 2, 64, 128, 256, "bfloat16"),
+    # ... reduced jamba's Mamba blocks (P 16, N 16, chunk 32) ...
+    (2, 64, 8, 1, 16, 16, 32, "bfloat16"),
+    (2, 64, 8, 1, 16, 16, 32, "float32"),
     # ... and the bf16 tensor-core kernel's paths: P 16 and 128, N = 20
     # (padded, ordinary loads), Q = 100, two groups.
     (1, 128, 4, 1, 16, 64, 64, "bfloat16"),
@@ -322,6 +348,15 @@ def phase_kernels(torch, fa) -> dict:
     print(f"flash at {WAVE2_SHAPE}, device time (CUDA graph): kernel {dev_ms:.4f} ms, sdpa "
           f"{dev_sdpa:.4f} ms; {bound2 / dev_ms:.1%} of its bound, {dev_ms / dev_sdpa:.2f}x "
           f"sdpa's time")
+    q, k, v = flash_inputs(torch, GRANITE_SHAPE, seed=3)
+    nbytes3, flops3 = flash_work(q, k, causal)
+    bound3, by3 = bound(nbytes3, flops3, q.dtype)
+    sdpa = sdpa_call(torch, q, k, v)
+    dev_ms = graph_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    dev_sdpa = graph_ms(torch, sdpa)
+    print(f"flash at {GRANITE_SHAPE} (granite-moe-3b-a800m's 512-token wave), device time "
+          f"(CUDA graph): kernel {dev_ms:.4f} ms, sdpa {dev_sdpa:.4f} ms, bound {bound3:.4f} ms "
+          f"({by3}); {bound3 / dev_ms:.1%} of its bound, {dev_ms / dev_sdpa:.2f}x sdpa's time")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -533,14 +568,16 @@ def phase_prefill_vs_decode(torch, np, kernel, cfg, model, params) -> None:
                 WHOLE_STACK_TOL, "")
 
 
-def phase_mamba_prefill_vs_decode(torch, np, kernel, cfg, model, params) -> None:
-    """The Mamba model's check, which shows that decode continues from the
-    scan kernel's final state. In bf16, the serving dtype, the two paths
-    round differently at every layer, and over 48 layers of random weights
-    that spread exceeds the whole-stack tolerance whatever computes the
-    scan, so the bf16 numbers are printed only. With the activations in
-    fp32 (`layers.COMPUTE_DTYPE`) the paths differ only in the scan's
-    arithmetic, and they are held to the fp32 kernel tolerance."""
+def phase_fp32_prefill_vs_decode(torch, np, kernel, cfg, model, params) -> None:
+    """The Mamba and MoE models' check, which shows that decode continues
+    from the scan kernel's final state or the flash kernel's KV cache. In
+    bf16, the serving dtype, the two paths round differently at every
+    layer: over 48 layers of random Mamba weights that spread exceeds the
+    whole-stack tolerance whatever computes the scan, and in MoE a token
+    whose router probabilities nearly tie goes to another expert on each
+    path. So the bf16 numbers are printed only. With the activations in
+    fp32 (`layers.COMPUTE_DTYPE`) the paths differ only in summation order,
+    and they are held to the fp32 kernel tolerance."""
     from repro_torch.models import layers as L
 
     a, b = prefill_vs_decode(torch, np, kernel, cfg, model, params)
@@ -556,6 +593,259 @@ def phase_mamba_prefill_vs_decode(torch, np, kernel, cfg, model, params) -> None
     finally:
         L.COMPUTE_DTYPE = torch.bfloat16
     check_close(torch, cfg, a, b, TOL["float32"], ", fp32 activations")
+
+
+def routing_spy(M):
+    """Wrap `models.moe.route` to keep each call's chosen experts, sorted per
+    token, on the host. Returns (the list they go to, a function that
+    restores `route`)."""
+    real, picks = M.route, []
+
+    def spy(p, cfg, x):
+        out = real(p, cfg, x)
+        picks.append(out[2].sort(dim=-1).values.cpu())
+        return out
+
+    M.route = spy
+    return picks, lambda: setattr(M, "route", real)
+
+
+def routing_agreement(a: list, b: list) -> float:
+    """Share of (token, choice) entries, over every MoE call, where two runs
+    picked the same expert."""
+    same = sum(int((x == y).sum()) for x, y in zip(a, b))
+    return same / sum(x.numel() for x in a)
+
+
+def moe_run(torch, cfg, params, ids, labels, grad_paths):
+    """One forward of `ids` (logits at every position, fp32, real vocab)
+    with the kernels where the device has them, then `lm_loss` with its aux
+    term and the gradients of the leaves at `grad_paths`. Returns logits,
+    loss, gradients and the experts each MoE call picked, on the host."""
+    from repro_torch import tree
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as M
+
+    picks, restore = routing_spy(M)
+    try:
+        with torch.no_grad():
+            h, _, _ = LM.lm_hidden(params, cfg, ids)
+            logits = LM.logits_from_hidden(params, cfg, h)[..., :cfg.vocab_size].cpu()
+        # The forward's routing only: the loss routes the same tokens again,
+        # and its remat once more in the backward pass.
+        forward_picks = list(picks)
+        if labels is None:
+            return logits, None, [], forward_picks
+        live = tree.map_leaves(lambda t: t.detach().requires_grad_(True), params)
+        loss = LM.lm_loss(live, cfg, ids, labels, q_chunk=ids.shape[1],
+                          loss_chunk=ids.shape[1])
+        leaves = [functools.reduce(dict.__getitem__, path.split("."), live)
+                  for path in grad_paths]
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        return logits, float(loss.detach()), grads, forward_picks
+    finally:
+        restore()
+
+
+def phase_moe_cross_check(torch, np, kernels: dict) -> None:
+    """Full-width granite-moe-3b-a800m cut to 2 layers, one set of weights
+    made on the card and copied to the host CPU: prefill logits of 2
+    prompts of 128 (flash attention on the card, the plain version on the
+    host), `lm_loss` with its aux term and the gradients of the router and
+    expert weights (the plain path on both). Held with fp32 activations,
+    where the two sides differ only in summation order and a routing flip
+    at a near-tie stays unlikely; the bf16 numbers and each run's share of
+    routing decisions that agree are printed."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import make_model
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), num_layers=2)
+    model = make_model(cfg)
+    card = model.init(0, device="cuda")
+    host = tree.map_leaves(lambda t: t.cpu(), card)
+    print(f"moe cross-check: {cfg.name} at 2 layers, {model.param_count() / 1e9:.3f} B "
+          f"parameters")
+    rng = np.random.default_rng(11)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129)))
+    inputs, labels = ids[:, :-1], ids[:, 1:]
+    paths = [f"layers.block0.ffn.{leaf}" for leaf in ("w_router", "w_up", "w_gate", "w_down")]
+    for dtype in ("bfloat16", "float32"):
+        L.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            flash = kernels["flash_attention"]
+            flash.launches = 0
+            t0 = time.perf_counter()
+            lc, loss_c, gc, pc = moe_run(torch, cfg, card, inputs.cuda(), labels.cuda(),
+                                         paths)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            launched = flash.launches
+            t0 = time.perf_counter()
+            lh, loss_h, gh, ph = moe_run(torch, cfg, host, inputs, labels, paths)
+            t_host = time.perf_counter() - t0
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        agree = routing_agreement(pc, ph)
+        err = (lc - lh).abs()
+        tol = TOL["float32"]
+        ok_logits = bool(torch.isfinite(lc).all()) and bool((err <= tol + tol * lh.abs()).all())
+        rel_loss = abs(loss_c - loss_h) / abs(loss_h)
+        grad_err = {p.rsplit(".", 1)[1]: (float((a - b).norm() / b.norm()))
+                    for p, a, b in zip(paths, gc, gh)}
+        held = dtype == "float32"
+        print(f"moe cross-check {dtype} activations: logits max|diff| {err.max().item():.3e}"
+              f"{f' (tol {tol})' if held else ''}; loss card {loss_c!r}, host cpu {loss_h!r}, "
+              f"relative diff {rel_loss:.3e}{f' (tol {CROSS_TOL})' if held else ''}; grads "
+              f"relative L2 {', '.join(f'{k} {v:.3e}' for k, v in grad_err.items())}; routing "
+              f"agrees on {agree:.4%} of {sum(x.numel() for x in pc)} choices; "
+              f"{launched} flash launches; card {t_card:.2f} s, host cpu {t_host:.2f} s"
+              f"{'' if held else ' (printed only)'}")
+        if launched != cfg.num_layers:
+            fail(f"moe cross-check: {launched} flash launches, want {cfg.num_layers} "
+                 f"(the no-grad forward's layers; the loss takes the plain path)")
+        if held and not (ok_logits and math.isfinite(loss_c) and rel_loss <= CROSS_TOL
+                         and all(v <= CROSS_TOL for v in grad_err.values())):
+            fail("moe cross-check: the card disagrees with the host CPU in fp32 activations")
+    del card, host
+
+
+def phase_jamba(torch, np, kernels: dict) -> dict:
+    """Reduced jamba-1.5-large-398b (one period: an attention+MoE block and
+    seven Mamba blocks, MoE on every other one; head dim 16, scan chunk 32)
+    on the card against the host CPU: one stack that launches both kernels
+    and routes through MoE. Logits of 2 prompts of 64 held with fp32
+    activations, bf16 printed. Returns each kernel's launches in the
+    fp32 pass."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import make_model
+
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    card = make_model(cfg).init(0, device="cuda")
+    host = tree.map_leaves(lambda t: t.cpu(), card)
+    ids = torch.from_numpy(np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 64)))
+    want = {"flash_attention": sum(bd.mixer == "attn" for bd in cfg.pattern) * cfg.periods,
+            "ssd_scan": sum(bd.mixer == "mamba" for bd in cfg.pattern) * cfg.periods}
+    for dtype in ("bfloat16", "float32"):
+        L.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            for mod in kernels.values():
+                mod.launches = 0
+            lc, _, _, pc = moe_run(torch, cfg, card, ids.cuda(), None, [])
+            counts = {name: mod.launches for name, mod in kernels.items()}
+            lh, _, _, ph = moe_run(torch, cfg, host, ids, None, [])
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        err = (lc - lh).abs()
+        tol = TOL["float32"]
+        ok = bool(torch.isfinite(lc).all()) and bool((err <= tol + tol * lh.abs()).all())
+        held = dtype == "float32"
+        print(f"{cfg.name} {dtype} activations, card vs host cpu: logits max|diff| "
+              f"{err.max().item():.3e}{f' (tol {tol})' if held else ' (printed only)'}; "
+              f"routing agrees on {routing_agreement(pc, ph):.4%}; kernel launches "
+              f"{counts} (want {want})")
+        if counts != want:
+            fail(f"{cfg.name}: kernel launches {counts}, want {want}")
+        if held and not ok:
+            fail(f"{cfg.name}: the card disagrees with the host CPU in fp32 activations")
+    return counts
+
+
+def moe_decode_profile(torch, np, cfg, model, params) -> None:
+    """Where a granite decode step's time goes (batch 8 over a 512-token
+    prefill, capacity 1): host enqueue against the device timeline over 3
+    steps (CUDA events), then `torch.profiler` over 2: kernel launches, the
+    device's busy time and idle share, the kernels that take the most device
+    time, among them the per-step fp32 -> bf16 casts of the expert
+    weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm as LM
+
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab_size, (8, 520))).cuda()
+    with torch.no_grad():
+        _, caches = LM.lm_prefill(params, cfg, ids[:, :512], max_len=520)
+        pos = iter(range(512, 520))
+
+        def step():
+            nonlocal caches
+            t = next(pos)
+            _, caches = model.decode_step(params, ids[:, t:t + 1], caches, t)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(3):
+            step()
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        print(f"moe decode profile: host enqueue {host_ms:.1f} ms a step, device timeline "
+              f"{start.elapsed_time(end) / 3:.1f} ms (3 steps of batch 8, no sync inside)")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 2 * 1e3
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                                           "cudaLaunchKernelExC"))
+    kernels = sorted((e for e in events if e.device_type.name == "CUDA"),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    print(f"moe decode profile (under the profiler): {launches / 2:.0f} kernel launches a "
+          f"step, device busy {busy_ms:.1f} ms of a {wall_ms:.1f} ms step "
+          f"(idle {1 - busy_ms / wall_ms:.1%})")
+    for e in kernels[:6]:
+        print(f"moe decode profile: device {e.self_device_time_total / 1e3 / 2:.2f} ms a step "
+              f"({e.count // 2} calls): {e.key[:90]}")
+
+
+def phase_moe(torch, np, kernels: dict) -> tuple[int, dict]:
+    """The MoE path: full-width granite-moe-3b-a800m (random weights from
+    seed 0) served like the other models, every layer's prefill attention
+    through the flash kernel and no scan; a profile of its decode step; its
+    drop-free copy's prefill against token-by-token decode; the 2-layer
+    card-vs-host check; reduced jamba through both kernels. Returns
+    granite's flash launches and reduced jamba's launches by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_model
+    from repro_torch.models import moe as M
+
+    t_phase = time.perf_counter()
+    cfg = get_config("granite-moe-3b-a800m")
+    model = make_model(cfg)
+    params = model.init(0, device="cuda")
+    print(f"{cfg.name}: {model.param_count() / 1e9:.3f} B parameters, "
+          f"{model.active_param_count() / 1e9:.3f} B active, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; {cfg.moe_num_experts} "
+          f"experts padded to {cfg.moe_padded_experts}, top-{cfg.moe_top_k}, capacity "
+          f"{M.capacity(cfg, 512)} / {M.capacity(cfg, 128)} / {M.capacity(cfg, 1)} slots an "
+          f"expert at 512 / 128 / 1 tokens a row")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches, _ = phase_serve(torch, np, cfg, model, params, kernels, "flash_attention")
+    print(f"serve {cfg.name}: phase {time.perf_counter() - t0:.1f} s with warm-up, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    moe_decode_profile(torch, np, cfg, model, params)
+    # Batched prefill drops tokens over capacity and single-token decode
+    # never does (a 32-token prompt gets 8 slots an expert), so this check
+    # runs a drop-free copy: the capacity factor equal to the expert count.
+    free = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.moe_num_experts))
+    phase_fp32_prefill_vs_decode(torch, np, kernels["flash_attention"], free,
+                                 make_model(free), params)
+    del params
+    phase_moe_cross_check(torch, np, kernels)
+    jamba = phase_jamba(torch, np, kernels)
+    print(f"moe phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, jamba
 
 
 class RestoreLog(logging.Handler):
@@ -1201,8 +1491,16 @@ def main() -> None:
     print(f"{cfg.name}: {model.param_count() / 1e9:.3f} B parameters, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     scan["launches"], _ = phase_serve(torch, np, cfg, model, params, kernels, "ssd_scan")
-    phase_mamba_prefill_vs_decode(torch, np, ssd, cfg, model, params)
+    phase_fp32_prefill_vs_decode(torch, np, ssd, cfg, model, params)
     del params
+
+    granite, jamba = phase_moe(torch, np, kernels)
+    # phase_serve fails unless granite's serve run launched no scan.
+    flash["launches_by_config"] = {"smollm-135m": flash["launches"],
+                                   "granite-moe-3b-a800m": granite,
+                                   "jamba-1.5-large-398b-reduced": jamba["flash_attention"]}
+    scan["launches_by_config"] = {"mamba2-1.3b": scan["launches"], "granite-moe-3b-a800m": 0,
+                                  "jamba-1.5-large-398b-reduced": jamba["ssd_scan"]}
 
     phase_train(torch, np, kernels)
     phase_usecases(torch, np)

@@ -97,8 +97,8 @@ def main(argv: list[str] | None = None) -> None:
     caches = LM.make_stack_cache(cfg, b, s + args.gen, device=device)
     _sync(device)
     t0 = time.perf_counter()
-    h, caches = LM.lm_hidden(params, cfg, inputs, caches=caches, update_cache=True,
-                             q_chunk=min(512, s))
+    h, caches, _ = LM.lm_hidden(params, cfg, inputs, caches=caches, update_cache=True,
+                                q_chunk=min(512, s))
     logits = LM.logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0]
     _sync(device)
     dt = time.perf_counter() - t0

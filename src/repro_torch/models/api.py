@@ -1,11 +1,13 @@
 """Model facade: one object per architecture config exposing
 spec/init/loss/prefill/decode, as the JAX package's ``models/api.py`` does, for
-decoder-only configs of the ``(attn, dense)`` pattern and Mamba-2 configs
-(``(mamba, -)``, e.g. ``mamba2-1.3b``).
+decoder-only configs: dense attention (``(attn, dense)``), Mamba-2
+(``(mamba, -)``, e.g. ``mamba2-1.3b``), MoE (``(attn, moe)``, e.g.
+``granite-moe-3b-a800m``) and hybrids of these (``jamba-1.5-large-398b``).
 
 Parameters are nested dicts of tensors with the JAX tree's paths and
 shapes (``layers.block0.attn.wq`` is (periods, d, Hq, D_h),
-``layers.block0.mamba.w_x`` is (periods, d, d_inner)), so a JAX parameter
+``layers.block0.mamba.w_x`` is (periods, d, d_inner), ``layers.block0.ffn.w_up``
+of an MoE block (periods, E_pad, d, f)), so a JAX parameter
 tree carries across as a copy with no transposes.
 """
 
@@ -18,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
+from repro_torch.models.moe import moe_spec
 from repro_torch.models.spec import init_params, param_count
 
 
@@ -34,6 +37,20 @@ class Model:
 
     def param_count(self) -> int:
         return param_count(self.spec())
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k of num_experts), by the
+        reference's arithmetic: the router is counted as d x the real
+        expert count, and the rest of each MoE layer (padding experts
+        included) scales by 1 - top_k / num_experts."""
+        total = self.param_count()
+        cfg = self.cfg
+        if not cfg.is_moe:
+            return total
+        moe_layers = sum(1 for b in cfg.pattern if b.ffn == "moe") * cfg.periods
+        expert_part = param_count(moe_spec(cfg)) - cfg.d_model * cfg.moe_num_experts
+        inactive = moe_layers * expert_part * (1 - cfg.moe_top_k / cfg.moe_num_experts)
+        return int(total - inactive)
 
     # -- training -------------------------------------------------------------
     def loss(self, params, batch: dict, *, q_chunk: int = 512,

@@ -263,7 +263,12 @@ def attention(
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-               dtype=COMPUTE_DTYPE, length: int = 0) -> KVCache:
+               dtype: torch.dtype | None = None, length: int = 0) -> KVCache:
+    """Zero k/v buffers in `dtype`, by default the activations' dtype at the
+    time of the call (`COMPUTE_DTYPE`, bf16), as the Mamba caches follow
+    it: with fp32 activations, decode then reads the k/v that prefill
+    computed, unrounded."""
+    dtype = COMPUTE_DTYPE if dtype is None else dtype
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),

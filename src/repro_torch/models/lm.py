@@ -1,14 +1,16 @@
-"""Decoder-only LM backbone for the ``(attn, dense)`` and ``(mamba, -)``
-block patterns.
+"""Decoder-only LM backbone: attention or Mamba mixers, each with a dense
+FFN, a Mixture-of-Experts FFN (``models/moe.py``) or none.
 
 The port of the JAX package's ``models/lm.py``. The layer stack is
 `cfg.periods` repetitions of the config's block pattern with parameters
 stacked on a leading periods axis; `stack_fwd` walks that axis in a Python
 loop, each period recomputed in the backward pass when `remat` is set.
 Decode caches (attention KV caches and Mamba conv/SSM states) are stacked
-the same way and updated in place. The training loss is `lm_loss`: the
-hidden states, then `chunked_xent` over the output table. The MoE,
-cross-attention and encoder-decoder branches are not ported yet and raise.
+the same way and updated in place. MoE blocks return a Switch auxiliary
+loss, summed over the stack. The training loss is `lm_loss`: the hidden
+states, then `chunked_xent` over the output table, plus the weighted aux
+term for MoE configs. The cross-attention and encoder-decoder branches are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssd as S
 from repro_torch.models.spec import stacked
 
@@ -27,11 +30,11 @@ NEG_INF = -1e30
 
 
 def _check_block(cfg: ModelConfig, bd: BlockDef) -> None:
-    if bd.mixer not in ("attn", "mamba") or bd.ffn not in ("dense", None) \
+    if bd.mixer not in ("attn", "mamba") or bd.ffn not in ("dense", "moe", None) \
             or bd.cross_attn or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: block {bd} is not ported yet; the port covers attention "
-            f"and Mamba mixers with a dense FFN or none")
+            f"and Mamba mixers with a dense or MoE FFN or none")
 
 
 # --------------------------------------------------------------------------- #
@@ -48,6 +51,8 @@ def block_spec(cfg: ModelConfig, bd: BlockDef) -> dict:
         spec["norm2"] = L.norm_spec(cfg)
     if bd.ffn == "dense":
         spec["ffn"] = L.mlp_spec(cfg)
+    elif bd.ffn == "moe":
+        spec["ffn"] = M.moe_spec(cfg)
     return spec
 
 
@@ -69,8 +74,9 @@ def block_fwd(
     cache: dict | None = None,
     update_cache: bool = False,
     q_chunk: int = 512,
-) -> tuple[torch.Tensor, dict]:
-    """Returns (x, new_cache)."""
+) -> tuple[torch.Tensor, dict, torch.Tensor | None]:
+    """Returns (x, new_cache, aux): aux is the MoE FFN's load-balancing loss,
+    None for a block with no MoE FFN (where the reference returns a zero)."""
     _check_block(cfg, bd)
     new_cache: dict = {}
     rm = torch.tensor(cfg.residual_multiplier, dtype=x.dtype)
@@ -95,16 +101,26 @@ def block_fwd(
         if mc is not None:
             new_cache["mamba"] = mc
 
+    aux = None
     if cfg.parallel_block and bd.ffn is not None:
         # Cohere: attn and FFN both read the same normed input.
-        x = x + rm * (attn_out + L.mlp(p["ffn"], cfg, h))
-        return x, new_cache
+        ffn_out, aux = _ffn(p["ffn"], cfg, bd, h)
+        x = x + rm * (attn_out + ffn_out)
+        return x, new_cache, aux
 
     x = x + rm * attn_out
     if bd.ffn is not None:
         h2 = L.apply_norm(p["norm2"], cfg, x)
-        x = x + rm * L.mlp(p["ffn"], cfg, h2)
-    return x, new_cache
+        ffn_out, aux = _ffn(p["ffn"], cfg, bd, h2)
+        x = x + rm * ffn_out
+    return x, new_cache, aux
+
+
+def _ffn(p: dict, cfg: ModelConfig, bd: BlockDef,
+         h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    if bd.ffn == "dense":
+        return L.mlp(p, cfg, h), None
+    return M.moe(p, cfg, h)
 
 
 # --------------------------------------------------------------------------- #
@@ -161,11 +177,13 @@ def stack_fwd(
     update_cache: bool = False,
     q_chunk: int = 512,
     remat: bool = False,
-) -> tuple[torch.Tensor, dict | None]:
+) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Run the periods in order over the residual stream. Each period's
     cache is a view into the stacked buffers, so the blocks' in-place
     updates land there directly; host-side fields (the KV length) are
-    taken from the last period's cache. Returns (x, new_caches).
+    taken from the last period's cache. Returns (x, new_caches, aux): aux
+    is the sum of the MoE blocks' aux losses in block order (a 0-d fp32
+    zero with no MoE block).
 
     `remat` (training, no caches) recomputes each period in the backward
     pass instead of keeping its activations, as `jax.checkpoint(period_fn)`
@@ -176,7 +194,8 @@ def stack_fwd(
     host: dict = {}
     periods = _unstack(p_stack, cfg.periods)
 
-    def period(x: torch.Tensor, idx: int) -> torch.Tensor:
+    def period(x: torch.Tensor, aux: torch.Tensor,
+               idx: int) -> tuple[torch.Tensor, torch.Tensor]:
         pp = periods[idx]
         for i, bd in enumerate(cfg.pattern):
             name = f"block{i}"
@@ -184,24 +203,28 @@ def stack_fwd(
                 key: dataclasses.replace(c, **{k: t[idx] for k, t in _tensor_fields(c).items()})
                 for key, c in caches[name].items()
             }
-            x, nc = block_fwd(
+            x, nc, block_aux = block_fwd(
                 pp[name], cfg, bd, x,
                 start=start,
                 cache=pc,
                 update_cache=update_cache,
                 q_chunk=q_chunk,
             )
+            if block_aux is not None:
+                aux = aux + block_aux
             host[name] = {key: _host_fields(c) for key, c in nc.items()}
-        return x
+        return x, aux
 
+    aux = x.new_zeros((), dtype=torch.float32)
     for idx in range(cfg.periods):
-        x = checkpoint(period, x, idx, use_reentrant=False) if remat else period(x, idx)
+        x, aux = (checkpoint(period, x, aux, idx, use_reentrant=False) if remat
+                  else period(x, aux, idx))
     if caches is None:
-        return x, None
+        return x, None, aux
     return x, {
         name: {key: dataclasses.replace(c, **host[name][key]) for key, c in blk.items()}
         for name, blk in caches.items()
-    }
+    }, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -227,10 +250,11 @@ def lm_hidden(
     p: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     start: int = 0, caches: dict | None = None, update_cache: bool = False,
     q_chunk: int = 512, remat: bool = False,
-) -> tuple[torch.Tensor, dict | None]:
-    """`start` is the global position of inputs[:, 0]."""
+) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """Final-normed hidden states, the updated caches and the stack's MoE aux
+    loss. `start` is the global position of inputs[:, 0]."""
     x = lm_inputs_to_hidden(p, cfg, inputs)
-    x, new_caches = stack_fwd(
+    x, new_caches, aux = stack_fwd(
         p["layers"], cfg, x,
         start=start,
         caches=caches,
@@ -238,7 +262,7 @@ def lm_hidden(
         q_chunk=q_chunk,
         remat=remat,
     )
-    return L.apply_norm(p["final_norm"], cfg, x), new_caches
+    return L.apply_norm(p["final_norm"], cfg, x), new_caches, aux
 
 
 def logits_from_hidden(p: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -280,13 +304,14 @@ def lm_loss(
     p: dict, cfg: ModelConfig, inputs: torch.Tensor, labels: torch.Tensor,
     *, q_chunk: int = 512, loss_chunk: int = 512, remat: bool = True,
 ) -> torch.Tensor:
-    """Mean next-token cross-entropy of a batch (a 0-d fp32 tensor). The
-    reference adds a Switch auxiliary term for MoE configs, which are not
-    ported yet."""
+    """Mean next-token cross-entropy of a batch (a 0-d fp32 tensor), plus,
+    for MoE configs, `moe_aux_loss_weight` times the stack's Switch aux loss
+    over the number of layers."""
+    h, _, aux = lm_hidden(p, cfg, inputs, q_chunk=q_chunk, remat=remat)
+    loss = chunked_xent(p, cfg, h, labels, chunk=loss_chunk)
     if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
-    h, _ = lm_hidden(p, cfg, inputs, q_chunk=q_chunk, remat=remat)
-    return chunked_xent(p, cfg, h, labels, chunk=loss_chunk)
+        loss = loss + cfg.moe_aux_loss_weight * aux / max(cfg.num_layers, 1)
+    return loss
 
 
 # --------------------------------------------------------------------------- #
@@ -300,8 +325,8 @@ def lm_prefill(
     b, s = inputs.shape[0], inputs.shape[1]
     max_len = max_len if max_len is not None else s
     caches = make_stack_cache(cfg, b, max_len, device=inputs.device)
-    h, caches = lm_hidden(p, cfg, inputs, caches=caches, update_cache=True,
-                          q_chunk=q_chunk)
+    h, caches, _ = lm_hidden(p, cfg, inputs, caches=caches, update_cache=True,
+                             q_chunk=q_chunk)
     return logits_from_hidden(p, cfg, h[:, -1:, :])[:, 0], caches
 
 
@@ -310,6 +335,6 @@ def lm_decode_step(
 ) -> tuple[torch.Tensor, dict]:
     """One token step. inputs: (B, 1) ids or (B, 1, D) embeds; `position` is
     the global position of the new token. Returns (logits, caches)."""
-    h, new_caches = lm_hidden(p, cfg, inputs, start=position, caches=caches,
-                              update_cache=True, q_chunk=1)
+    h, new_caches, _ = lm_hidden(p, cfg, inputs, start=position, caches=caches,
+                                 update_cache=True, q_chunk=1)
     return logits_from_hidden(p, cfg, h)[:, 0], new_caches

@@ -1,0 +1,158 @@
+"""Mixture-of-Experts with capacity-based top-k routing.
+
+The port of the JAX package's ``models/moe.py``. Dispatch uses slot
+indices from cumulative positions (no (tokens, E, capacity) one-hot
+dispatch tensor): each batch row routes its own tokens, each expert takes
+at most `capacity` of them, in token order, and the rest go to a trash
+slot that is dropped. The expert products are batched matmuls over the
+(padded) expert axis; there is no MoE kernel in the JAX package and none
+here.
+
+The reference's `constrain` calls are left out: they place tensors on a
+TPU mesh, and the port's mesh tooling (expert and tensor sharding) is not
+ported yet. On one card every tensor is whole.
+
+Where a literal port would differ from the reference:
+- router logits are fp32 products of operands in the activations' dtype
+  (the reference's `preferred_element_type=float32`), as
+  `lm.logits_from_hidden` computes them;
+- top-k takes the first k of a stable descending sort, so among equal
+  probabilities the lower expert index wins, as `jax.lax.top_k` orders
+  them (`torch.topk` promises no order among ties);
+- the combine gathers each token's k weighted slot outputs and adds them in
+  ascending slot order, one rounding to the activations' dtype per add:
+  the reference's sequential scatter-add, with no atomics on the card, so
+  two calls give the same bits.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import _act
+from repro_torch.models.spec import ParamSpec
+
+NEG_INF = -1e30
+
+
+def moe_spec(cfg: ModelConfig) -> dict:
+    e, d, f = cfg.moe_padded_experts, cfg.d_model, cfg.d_ff
+    spec = {
+        "w_router": ParamSpec((d, e), ("fsdp", None), ("fan_in", d)),
+        "w_up": ParamSpec((e, d, f), ("expert", "fsdp", "tp"), ("fan_in", d)),
+        "w_down": ParamSpec((e, f, d), ("expert", "tp", "fsdp"), ("fan_in", f)),
+    }
+    if cfg.glu:
+        spec["w_gate"] = ParamSpec((e, d, f), ("expert", "fsdp", "tp"), ("fan_in", d))
+    return spec
+
+
+def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    """Slots per expert for a group (batch row) of `tokens_per_group`
+    tokens: ceil(tokens * k * factor / experts), rounded up to a multiple of
+    8 from 8 on; below 8 exact (decode, one token a row, gets 1)."""
+    cap = int(
+        math.ceil(tokens_per_group * cfg.moe_top_k * cfg.moe_capacity_factor
+                  / cfg.moe_num_experts)
+    )
+    if cap >= 8:
+        return -(-cap // 8) * 8
+    return max(1, cap)
+
+
+def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
+    """The expert MLPs on their slots: xe (B, E, C, D) -> (B, E, C, D), one
+    batched matmul per weight over the expert axis (rows of all batch rows
+    side by side), in the activations' dtype."""
+    b, e, c, d = xe.shape
+    xs = xe.transpose(0, 1).reshape(e, b * c, d)
+    h = torch.bmm(xs, p["w_up"].to(xe.dtype))
+    if cfg.glu:
+        gate = torch.bmm(xs, p["w_gate"].to(xe.dtype))
+        h = _act(cfg, gate) * h
+    else:
+        h = _act(cfg, h)
+    ye = torch.bmm(h, p["w_down"].to(xe.dtype))
+    return ye.reshape(e, b, c, d).transpose(0, 1)
+
+
+def combine(yw: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Each token's sum of its weighted slot outputs. yw: (B, n_slots, D);
+    slots: (B, S, k), a token's slots, `n_slots` for a choice over
+    capacity. The k rows (the trash slot reads a zero row) are added in
+    ascending slot order, rounding to yw's dtype after each add: the
+    reference's sequential scatter-add, bit for bit, with no atomics."""
+    b, _, d = yw.shape
+    yw = torch.cat([yw, yw.new_zeros((b, 1, d))], dim=1)
+    rows = torch.arange(b, device=yw.device)[:, None, None]
+    picked = yw[rows, slots.sort(dim=-1).values]                     # (B, S, k, D)
+    y = picked[:, :, 0]
+    for j in range(1, slots.shape[-1]):
+        y = y + picked[:, :, j]
+    return y
+
+
+def route(p: dict, cfg: ModelConfig,
+          x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router probabilities (B, S, E) in fp32, then each token's top-k
+    gates, renormalised to sum to 1, and experts, (B, S, k) each, the
+    likelier first."""
+    e, k = cfg.moe_padded_experts, cfg.moe_top_k
+    logits = x.float() @ p["w_router"].to(x.dtype).float()        # (B, S, E)
+    if e != cfg.moe_num_experts:
+        # Padding experts (the reference's sharding alignment) never win.
+        pad = torch.arange(e, device=x.device) >= cfg.moe_num_experts
+        logits = logits.masked_fill(pad, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = ranked[..., :k], order[..., :k]
+    return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), expert_idx
+
+
+def moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B, S, D) in x's dtype, the Switch load-balancing aux
+    loss, a 0-d fp32 tensor). Routing is per batch row."""
+    b, s, d = x.shape
+    e, k = cfg.moe_padded_experts, cfg.moe_top_k
+    cap = capacity(cfg, s)
+    n_slots = e * cap
+    probs, gate_vals, expert_idx = route(p, cfg, x)
+
+    # --- slot assignment (per-row cumulative positions) -----------------------
+    # Over the flattened (S·k) axis, k inner: within an expert the earlier
+    # token takes the earlier slot, and tokens past capacity go to the trash
+    # slot `n_slots`.
+    flat_e = expert_idx.reshape(b, s * k)
+    onehot = F.one_hot(flat_e, e)                                    # (B, S*k, E)
+    pos_in_e = (onehot.cumsum(dim=1) * onehot).sum(dim=-1) - 1
+    keep = pos_in_e < cap
+    slot = torch.where(keep, flat_e * cap + pos_in_e, n_slots)
+    tok = (torch.arange(s * k, device=x.device) // k).expand(b, s * k)
+    gate_flat = gate_vals.reshape(b, s * k) * keep
+
+    # Each slot's token (s, the zero row, for an empty slot) and gate. Only
+    # the trash column receives duplicate indices, which makes `scatter`'s
+    # choice among them nondeterministic on the card and its gradient
+    # assume unique indices; both are harmless because that column is
+    # sliced off (its gradient is 0).
+    slot_tok = torch.full((b, n_slots + 1), s, dtype=torch.long, device=x.device)
+    slot_tok = slot_tok.scatter(1, slot, tok)[:, :n_slots]
+    slot_gate = x.new_zeros((b, n_slots + 1), dtype=torch.float32).scatter(1, slot, gate_flat)
+
+    # --- expert computation -----------------------------------------------------
+    xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
+    xe = xp[torch.arange(b, device=x.device)[:, None], slot_tok].reshape(b, e, cap, d)
+    ye = _experts(p, cfg, xe).reshape(b, n_slots, d)
+
+    # --- combine ----------------------------------------------------------------
+    y = combine(ye * slot_gate[:, :n_slots, None].to(ye.dtype), slot.reshape(b, s, k))
+
+    # --- aux load-balancing loss (Switch-style) -------------------------------
+    frac_tokens = F.one_hot(expert_idx[..., 0], e).float().mean(dim=(0, 1))
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = e * (frac_tokens * frac_probs).sum()
+    return y, aux

@@ -135,7 +135,7 @@ class ServeEngine:
 
             # Prefill with decode headroom.
             caches = LM.make_stack_cache(cfg, b, s + budget, device=self.device)
-            h, caches = LM.lm_hidden(
+            h, caches, _ = LM.lm_hidden(
                 self.params, cfg, torch.from_numpy(batch_ids).to(self.device),
                 caches=caches, update_cache=True, q_chunk=min(512, s),
             )

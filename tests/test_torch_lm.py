@@ -1,7 +1,15 @@
 """The port's LM stack and model facade against the JAX package's, on the
 CPU, with the JAX package's own weights carried across by
 `params_from_numpy` (its init is not reproducible across processes, so
-both sides must share one set of weights)."""
+both sides must share one set of weights).
+
+MoE configs compare with fp32 activations on both sides, on the port's
+seeded weights carried to JAX (the same in every process). In bf16 the
+two sides' hidden states differ by rounding, and where a token's k-th and
+(k+1)-th router probabilities lie closer than that (0.001 apart on
+reduced jamba), the sides route it to different experts and its output
+moves by far more than TOL. The MoE layer alone is held in bf16 in
+tests/test_torch_moe.py, where both sides route the same inputs."""
 
 from __future__ import annotations
 
@@ -16,11 +24,13 @@ import torch
 from repro.configs import all_configs as jax_all_configs
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import BlockDef
+from repro.models import layers as JL
 from repro.models import lm as JLM
 from repro.models import make_model as jax_make_model
 from repro.models.spec import ParamSpec as JaxParamSpec
 from repro_torch.bridge import params_from_numpy, tensor_from_numpy
 from repro_torch.configs import get_config
+from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.models import make_model
 from repro_torch.models.spec import tree_leaves
@@ -29,7 +39,8 @@ TOL = 0.15          # whole-stack bf16 tolerance, tests/test_archs.py
 MARGIN = 0.3        # compare argmax only where JAX's top-2 margin exceeds this
 DENSE = sorted(n for n, c in jax_all_configs().items()
                if c.pattern == (BlockDef("attn", "dense"),) and not c.is_encdec)
-PORTED = DENSE + ["mamba2-1.3b"]
+MOE = sorted(n for n, c in jax_all_configs().items() if c.is_moe)
+PORTED = DENSE + ["mamba2-1.3b"] + MOE
 OTHER = sorted(set(jax_all_configs()) - set(PORTED))
 MAMBA_LEAVES = ("conv_x", "conv_b", "conv_c", "ssm")
 
@@ -56,10 +67,26 @@ def _inputs(cfg, rng, b: int, s: int):
     return jnp.asarray(ids, jnp.int32), torch.from_numpy(ids)
 
 
+def _fp32_activations(monkeypatch) -> None:
+    """Both packages' activations (`layers.COMPUTE_DTYPE`) in fp32."""
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+
+
+def _to_numpy(t: dict) -> dict:
+    return {k: _to_numpy(v) if isinstance(v, dict) else v.numpy() for k, v in t.items()}
+
+
 def _check_prefill_and_decode(jcfg, cfg, seed: int, b: int = 2, s: int = 16,
-                              steps: int = 4):
-    params = jax_make_model(jcfg).init(jax.random.key(seed))
-    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+                              steps: int = 4, port_weights: bool = False):
+    """`port_weights`: the port's seeded init carried to JAX, instead of the
+    JAX init carried to the port."""
+    if port_weights:
+        tparams = make_model(cfg).init(seed, device="cpu")
+        params = jax.tree.map(jnp.asarray, _to_numpy(tparams))
+    else:
+        params = jax_make_model(jcfg).init(jax.random.key(seed))
+        tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     rng = np.random.default_rng(seed)
     v = cfg.vocab_size
 
@@ -104,13 +131,19 @@ def _compare_caches(tc: dict, jc: dict, length: int) -> None:
             for leaf in MAMBA_LEAVES:
                 g, w = getattr(got, leaf), getattr(want, leaf)
                 assert tuple(g.shape) == w.shape, (name, leaf)
-                assert str(g.dtype).removeprefix("torch.") == np.dtype(w.dtype).name
+                # With fp32 activations the port keeps its conv states in
+                # fp32 (they follow `layers.COMPUTE_DTYPE`); the reference's
+                # stay bf16.
+                if leaf == "ssm" or L.COMPUTE_DTYPE == torch.bfloat16:
+                    assert str(g.dtype).removeprefix("torch.") == np.dtype(w.dtype).name
                 _close(g, w, err_msg=f"{name} {leaf} cache")
 
 
 @pytest.mark.parametrize("name", PORTED)
-def test_reduced_prefill_and_decode_match_jax(name):
-    _check_prefill_and_decode(*_cfgs(name), seed=0)
+def test_reduced_prefill_and_decode_match_jax(name, monkeypatch):
+    if name in MOE:
+        _fp32_activations(monkeypatch)
+    _check_prefill_and_decode(*_cfgs(name), seed=0, port_weights=name in MOE)
 
 
 def test_full_width_smollm_two_layers_matches_jax():
@@ -125,6 +158,16 @@ def test_full_width_mamba2_two_layers_matches_jax():
                               b=1, s=16, steps=2)
 
 
+def test_full_width_granite_two_layers_matches_jax(monkeypatch):
+    """granite-moe-3b-a800m at its published widths (d_model 1536, 24/8
+    heads of 64, 40 experts padded to 48, top-8, d_ff 512), two layers,
+    fp32 activations. At 16 tokens a row each expert takes 4, so the
+    prefill drops tokens over capacity; a decode step takes 1."""
+    _fp32_activations(monkeypatch)
+    _check_prefill_and_decode(*_cfgs("granite-moe-3b-a800m", reduced=False, num_layers=2),
+                              seed=1, b=2, s=16, steps=2, port_weights=True)
+
+
 def test_incremental_decode_matches_full_forward():
     """Full forward (flash path, no cache) against prefill + one-token decode
     steps (plain path over the cache), within the port alone."""
@@ -132,7 +175,7 @@ def test_incremental_decode_matches_full_forward():
     model = make_model(cfg)
     params = model.init(3, device="cpu")
     ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 24)))
-    h, _ = LM.lm_hidden(params, cfg, ids)
+    h, _, _ = LM.lm_hidden(params, cfg, ids)
     ref = LM.logits_from_hidden(params, cfg, h)
     logits, caches = LM.lm_prefill(params, cfg, ids[:, :16], max_len=24)
     torch.testing.assert_close(logits, ref[:, 15], rtol=TOL, atol=TOL)
@@ -149,11 +192,31 @@ def test_incremental_decode_matches_full_forward_mamba():
     model = make_model(cfg)
     params = model.init(3, device="cpu")
     ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 40)))
-    h, _ = LM.lm_hidden(params, cfg, ids)
+    h, _, _ = LM.lm_hidden(params, cfg, ids)
     ref = LM.logits_from_hidden(params, cfg, h)
     logits, caches = LM.lm_prefill(params, cfg, ids[:, :12])
     torch.testing.assert_close(logits, ref[:, 11], rtol=TOL, atol=TOL)
     for t in range(12, 40):
+        logits, caches = model.decode_step(params, ids[:, t:t + 1], caches, t)
+        torch.testing.assert_close(logits, ref[:, t], rtol=TOL, atol=TOL)
+
+
+def test_incremental_decode_matches_full_forward_moe():
+    """Full forward against prefill + one-token decode steps on reduced
+    granite, within the port alone, on a drop-free copy of the config (the
+    capacity factor equal to the expert count, as tests/test_archs.py
+    does): a batched pass legitimately drops tokens over capacity, and a
+    single-token decode step never does."""
+    cfg = get_config("granite-moe-3b-a800m").reduced()
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=float(cfg.moe_num_experts))
+    model = make_model(cfg)
+    params = model.init(3, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 24)))
+    h, _, _ = LM.lm_hidden(params, cfg, ids)
+    ref = LM.logits_from_hidden(params, cfg, h)
+    logits, caches = LM.lm_prefill(params, cfg, ids[:, :16], max_len=24)
+    torch.testing.assert_close(logits, ref[:, 15], rtol=TOL, atol=TOL)
+    for t in range(16, 24):
         logits, caches = model.decode_step(params, ids[:, t:t + 1], caches, t)
         torch.testing.assert_close(logits, ref[:, t], rtol=TOL, atol=TOL)
 

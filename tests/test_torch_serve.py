@@ -308,6 +308,19 @@ def test_driver_serves_mamba_on_cpu(capsys):
     assert ssd.launches == before   # CPU tensors take the plain version
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "dbrx-132b", "jamba-1.5-large-398b"])
+def test_driver_serves_moe_on_cpu(capsys, arch):
+    """A reduced MoE config through the driver: restore, batched prefill
+    (through the kernels' plain versions on the CPU), decode."""
+    before = fa.launches
+    serve_main.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                     "--prompt-len", "8", "--gen", "3"])
+    out = capsys.readouterr().out
+    assert "weight restore (rolling): " in out
+    assert "prefill:" in out and "decoded 3 tokens x 2 seqs" in out
+    assert fa.launches == before
+
+
 def test_driver_samples_with_temperature(capsys):
     serve_main.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen", "3",
                      "--temperature", "0.7", "--seed", "5"])

@@ -1,7 +1,8 @@
 """The port's training pieces against the JAX package's, on the CPU: AdamW
-(`schedule`, `apply_updates`), the loss (`chunked_xent`, `lm_loss`) and its
-gradients per parameter leaf, the periods' recompute (`remat`), and the
-routing that keeps the forward-only kernels off the training path.
+(`schedule`, `apply_updates`), the loss (`chunked_xent`, `lm_loss`, with
+the MoE aux term) and its gradients per parameter leaf, the periods'
+recompute (`remat`), and the routing that keeps the forward-only kernels
+off the training path.
 
 Both sides start from the port's seeded weights, carried to JAX through
 numpy (the JAX package's init differs between processes). Tolerances:
@@ -9,7 +10,9 @@ fp32 AdamW arithmetic 1e-6 relative (the two libraries sum the global
 norm in different orders); gradients per leaf, as the relative L2 error,
 1e-4 with fp32 activations (measured at most 7e-6) and 5e-2 with bf16
 activations (measured at most 3.3e-2: every layer rounds its activations
-to bf16, 2^-8 relative, in a different order on each side)."""
+to bf16, 2^-8 relative, in a different order on each side). MoE configs
+compare with fp32 activations only: in bf16 a router near-tie can send a
+token to other experts on each side (tests/test_torch_lm.py)."""
 
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.models import make_model
 from repro_torch.train import optimizer as OPT
 
 ARCHS = ["smollm-135m", "mamba2-1.3b"]
+MOE_ARCHS = ["granite-moe-3b-a800m", "jamba-1.5-large-398b"]
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
@@ -185,6 +189,19 @@ def test_loss_and_grads_per_leaf_match_jax(arch, activations):
     """`lm_loss` and its gradient w.r.t. every parameter leaf against
     `jax.value_and_grad` of the JAX package's `lm_loss`, with query chunks,
     loss chunks and remat on both sides."""
+    _check_loss_and_grads(arch, activations)
+
+
+@pytest.mark.parametrize("activations", ["float32"], indirect=True)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_and_grads_per_leaf_match_jax(arch, activations):
+    """The same for MoE configs, whose loss carries the weighted Switch aux
+    term: the router's, the experts' and every other leaf's gradients
+    against the reference's."""
+    _check_loss_and_grads(arch, activations)
+
+
+def _check_loss_and_grads(arch: str, activations: str) -> None:
     jcfg, cfg = _cfgs(arch)
     params = make_model(cfg).init(0, device="cpu")
     ids, labels = _batch(cfg, seed=0)
@@ -204,7 +221,7 @@ def test_loss_and_grads_per_leaf_match_jax(arch, activations):
         assert err <= GRAD_TOL[activations], f"{path}: relative L2 error {err:.3e}"
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_remat_gives_the_same_grads(arch):
     """Recomputing each period (and each query chunk) in the backward pass
     changes no gradient: the recompute sees the same weights and inputs."""
@@ -228,7 +245,8 @@ def test_remat_refuses_caches():
 
 
 @pytest.mark.parametrize("arch,entry", [("smollm-135m", "flash_attention"),
-                                        ("mamba2-1.3b", "ssd_scan")])
+                                        ("mamba2-1.3b", "ssd_scan"),
+                                        ("granite-moe-3b-a800m", "flash_attention")])
 def test_training_never_calls_the_kernels_and_prefill_still_does(monkeypatch, arch, entry):
     """A spy on each `ops` entry: a loss and its gradients call neither;
     `lm_prefill` without grad calls the model's kernel once per layer."""
@@ -253,9 +271,22 @@ def test_training_never_calls_the_kernels_and_prefill_still_does(monkeypatch, ar
     assert calls == {name: cfg.num_layers if name == entry else 0 for name in calls}
 
 
-def test_lm_loss_raises_for_moe():
-    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), moe_num_experts=4)
-    assert cfg.is_moe
-    with pytest.raises(NotImplementedError, match="MoE"):
-        LM.lm_loss({}, cfg, torch.zeros(1, 4, dtype=torch.long),
-                   torch.zeros(1, 4, dtype=torch.long))
+@pytest.mark.parametrize("activations", ["float32"], indirect=True)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_adds_the_weighted_aux_term(arch, activations):
+    """`lm_loss` is the cross-entropy plus `moe_aux_loss_weight` times the
+    stack's aux over the layer count, and that aux equals the reference's."""
+    jcfg, cfg = _cfgs(arch)
+    params = make_model(cfg).init(2, device="cpu")
+    ids, labels = _batch(cfg, seed=3)
+    with torch.no_grad():
+        loss = LM.lm_loss(params, cfg, torch.from_numpy(ids), torch.from_numpy(labels),
+                          q_chunk=32, loss_chunk=32)
+        h, _, aux = LM.lm_hidden(params, cfg, torch.from_numpy(ids), q_chunk=32)
+        xent = LM.chunked_xent(params, cfg, h, torch.from_numpy(labels), chunk=32)
+    assert any(bd.ffn == "moe" for bd in cfg.pattern) and float(aux) > 0
+    assert float(loss) == pytest.approx(
+        float(xent) + cfg.moe_aux_loss_weight * float(aux) / cfg.num_layers, rel=1e-6)
+    _, _, want_aux = JLM.lm_hidden(to_jax(params), jcfg, jnp.asarray(ids, jnp.int32),
+                                   q_chunk=32)
+    assert math.isclose(float(aux), float(want_aux), rel_tol=1e-5)

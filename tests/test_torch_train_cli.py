@@ -6,6 +6,7 @@ JAX driver's line format."""
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -93,6 +94,15 @@ def test_driver_with_microbatches_runs(tmp_path, capsys):
                       "--ckpt-store", f"local://{tmp_path / 'c'}"])
     assert len(res.losses) == 2 and all(torch.isfinite(torch.tensor(res.losses)))
     assert "step=2 " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "jamba-1.5-large-398b"])
+def test_driver_trains_moe_on_cpu(tmp_path, arch):
+    """One step of a reduced MoE config through the driver."""
+    res = train.main(["--arch", arch, "--device", "cpu", "--steps", "1",
+                      "--batch", "2", "--seq-len", "16", "--log-every", "1",
+                      "--ckpt-store", f"local://{tmp_path / 'm'}"])
+    assert len(res.losses) == 1 and math.isfinite(res.losses[0])
 
 
 def test_driver_needs_a_card_unless_asked_for_the_cpu(tmp_path):
