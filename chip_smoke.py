@@ -10,7 +10,8 @@ Phases, each of which exits non-zero on a failed check:
      memory and CTAs per SM;
   2. each kernel (flash attention, the SSD scan) against its plain PyTorch
      version on the card, over the JAX package's test shapes, the serving
-     paths' shapes and the bf16 tensor-core paths' shapes, and timed at
+     paths' shapes and the bf16 tensor-core paths' shapes (flash also held
+     to a relative L2 error over its whole output), and timed at
      both serving waves beside the plain version, its bound and, where one
      exists, a PyTorch library call, as eager calls and as device time
      over a CUDA graph;
@@ -37,6 +38,22 @@ Phases, each of which exits non-zero on a failed check:
      bf16 and the share of routing decisions that agree printed; and
      reduced jamba-1.5-large-398b (attention, Mamba and MoE blocks in one
      stack, both kernels) on the card against the host;
+  3g. the encoder-decoder path (after 3f): full-width whisper-large-v3
+     (32 encoder and 32 decoder layers, random weights from a seed) through
+     the port's driver (`repro_torch.launch.serve`), 8 requests of 1500
+     stub frames, an 8-token decoder prompt and 32 new tokens each, its
+     weights published to and restored from a simulated store at 10 ms a
+     request and 2000 MB/s; every encoder layer's self-attention through
+     the flash kernel unmasked and every decoder layer's prompt through it
+     causal (64 launches), no scan, ids in range. Then whisper cut to 2
+     encoder and 2 decoder layers on the card and on the host CPU from one
+     set of weights: encoder states, prefill logits, 8 decode steps,
+     `encdec_loss` and its gradients held in fp32 activations, bf16
+     printed; full-depth whisper's teacher-forced logits against an
+     8-token prefill and token-by-token decode on the card, held in fp32
+     activations, bf16 printed; the driver's restore split (reader,
+     digest, staging, host-to-device waits) and a profile of a warm
+     full-size prefill (launches, device busy and idle share, top kernels);
   3c. restore: full-width smollm-135m weights published to a simulated
      object store (10 ms a request, 160 MB/s) and restored onto the card
      with rolling prefetch (through `ServeEngine.from_store`, which then
@@ -125,6 +142,14 @@ FLASH_CASES = [
     (2, 24, 8, 128, 128, 64, True, "float32"),
     (2, 4, 1, 64, 64, 16, True, "bfloat16"),
     (2, 4, 1, 64, 64, 16, True, "float32"),
+    # ... whisper-large-v3's encoder self-attention (8 requests of 1500
+    # frames, 20 heads of 64, unmasked; the last k tile holds 28 of its 64
+    # columns), its decoder's 8-token prompt (one partial tile, causal), and
+    # their fp32 twins ...
+    (8, 20, 20, 1500, 1500, 64, False, "bfloat16"),
+    (8, 20, 20, 1500, 1500, 64, False, "float32"),
+    (8, 20, 20, 8, 8, 64, True, "bfloat16"),
+    (8, 20, 20, 8, 8, 64, True, "float32"),
     # ... and the bf16 tensor-core kernel's paths: head dims 16, 32 and
     # 128, causal Sq != Sk, ragged non-causal.
     (1, 4, 2, 256, 256, 16, True, "bfloat16"),
@@ -136,6 +161,7 @@ FLASH_CASES = [
 SLICE_SHAPE = (8, 9, 3, 512, 512, 64, True, "bfloat16")
 WAVE2_SHAPE = (4, 9, 3, 128, 128, 64, True, "bfloat16")
 GRANITE_SHAPE = (8, 24, 8, 512, 512, 64, True, "bfloat16")
+WHISPER_SHAPE = (8, 20, 20, 1500, 1500, 64, False, "bfloat16")
 SSD_CASES = [
     # (b, s, h, g, p, n, chunk, dtype): the JAX package's test sweep ...
     (1, 128, 4, 1, 32, 32, 32, "float32"),
@@ -183,7 +209,19 @@ CLIMB_TOL = 0.05           # nats, mean of steps 31-40 over mean of steps 1-5
 OVERFIT_STEPS, OVERFIT_FALL = 10, 0.1   # steps on one batch; least fall, nats
 RESUME_TOL = 1e-3          # relative, resumed vs uninterrupted losses
 CROSS_TOL = 1e-4           # relative, card vs host CPU in fp32 activations
+# The encoder-decoder phase: the serving driver's flags at full width, its
+# weight store at 25x the driver's default bandwidth (publishing and
+# restoring 6.41 GB at 80 MB/s would take about 160 s).
+WHISPER_ARGS = ["--arch", "whisper-large-v3", "--full", "--batch", "8", "--prompt-len", "1500",
+                "--gen", "32", "--store", "sims3://whisper?latency_ms=10&bw_mbps=2000",
+                "--device", "cuda", "--seed", "0"]
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
+# The flash kernel is also held to |out - ref| / |ref| over the whole output
+# (L2 norms). Over 1500 keys an output is about 0.04 in size, so the
+# elementwise limits above would pass an unmasked ragged tail: its 36
+# padding columns read as zero keys grow each softmax sum, and shrink the
+# output, by about 1.5%, three times the bf16 limit here.
+REL_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 WHOLE_STACK_TOL = 0.15                         # tests/test_archs.py
 
 
@@ -286,14 +324,14 @@ def flash_work(q, k, causal: bool) -> tuple[int, int]:
     return nbytes, 4 * d * visible * b * hq
 
 
-def sdpa_call(torch, q, k, v):
+def sdpa_call(torch, q, k, v, causal: bool = True):
     """The library yardstick: one `scaled_dot_product_attention` call on k/v
     expanded to the q heads."""
     group = q.shape[1] // k.shape[1]
     ke = k.repeat_interleave(group, dim=1)
     ve = v.repeat_interleave(group, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return lambda: sdpa(q, ke, ve, is_causal=True)
+    return lambda: sdpa(q, ke, ve, is_causal=causal)
 
 
 def phase_kernels(torch, fa) -> dict:
@@ -308,9 +346,10 @@ def phase_kernels(torch, fa) -> dict:
             fail(f"flash {case}: got {out.dtype} {tuple(out.shape)}")
         err = (out.float() - ref.float()).abs()
         tol = TOL[dtype]
-        ok = bool((err <= tol + tol * ref.float().abs()).all())
-        print(f"flash {case}: max|diff| {err.max().item():.3e} (tol {tol}) "
-              f"{'ok' if ok else 'FAIL'}")
+        rel = (err.norm() / ref.float().norm()).item()
+        ok = bool((err <= tol + tol * ref.float().abs()).all()) and rel <= REL_TOL[dtype]
+        print(f"flash {case}: max|diff| {err.max().item():.3e} (tol {tol}), relative "
+              f"{rel:.3e} (tol {REL_TOL[dtype]}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash kernel disagrees with its plain version at {case}")
         worst[case] = err.max().item()
@@ -334,29 +373,9 @@ def phase_kernels(torch, fa) -> dict:
     print(f"flash at {SLICE_SHAPE}, device time (CUDA graph): kernel {dev_ms:.4f} ms, sdpa "
           f"{dev_sdpa:.4f} ms; {bound_ms / dev_ms:.1%} of its bound, {dev_ms / dev_sdpa:.2f}x "
           f"sdpa's time")
-    q, k, v = flash_inputs(torch, WAVE2_SHAPE, seed=2)
-    nbytes2, flops2 = flash_work(q, k, causal)
-    bound2, _ = bound(nbytes2, flops2, q.dtype)
-    sdpa = sdpa_call(torch, q, k, v)
-    ms_wave2 = cuda_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
-    sdpa_wave2 = cuda_ms(torch, sdpa)
-    print(f"flash at {WAVE2_SHAPE} (the 128-token wave): kernel {ms_wave2:.4f} ms, sdpa "
-          f"{sdpa_wave2:.4f} ms, bound {bound2:.4f} ms; {bound2 / ms_wave2:.1%} of its bound, "
-          f"{ms_wave2 / sdpa_wave2:.2f}x sdpa's time")
-    dev_ms = graph_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
-    dev_sdpa = graph_ms(torch, sdpa)
-    print(f"flash at {WAVE2_SHAPE}, device time (CUDA graph): kernel {dev_ms:.4f} ms, sdpa "
-          f"{dev_sdpa:.4f} ms; {bound2 / dev_ms:.1%} of its bound, {dev_ms / dev_sdpa:.2f}x "
-          f"sdpa's time")
-    q, k, v = flash_inputs(torch, GRANITE_SHAPE, seed=3)
-    nbytes3, flops3 = flash_work(q, k, causal)
-    bound3, by3 = bound(nbytes3, flops3, q.dtype)
-    sdpa = sdpa_call(torch, q, k, v)
-    dev_ms = graph_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=True))
-    dev_sdpa = graph_ms(torch, sdpa)
-    print(f"flash at {GRANITE_SHAPE} (granite-moe-3b-a800m's 512-token wave), device time "
-          f"(CUDA graph): kernel {dev_ms:.4f} ms, sdpa {dev_sdpa:.4f} ms, bound {bound3:.4f} ms "
-          f"({by3}); {bound3 / dev_ms:.1%} of its bound, {dev_ms / dev_sdpa:.2f}x sdpa's time")
+    flash_timing(torch, fa, WAVE2_SHAPE, "the 128-token wave", seed=2)
+    flash_timing(torch, fa, GRANITE_SHAPE, "granite-moe-3b-a800m's 512-token wave", seed=3)
+    whisper = flash_timing(torch, fa, WHISPER_SHAPE, "whisper-large-v3's encoder", seed=4)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -368,7 +387,32 @@ def phase_kernels(torch, fa) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "whisper_encoder": whisper,
     }
+
+
+def flash_timing(torch, fa, case, what: str, seed: int) -> dict:
+    """The kernel at `case`: the eager median (CUDA events), the device time
+    over a CUDA graph, the plain version's and SDPA's times, and the bound."""
+    causal = case[6]
+    q, k, v = flash_inputs(torch, case, seed=seed)
+    nbytes, flops = flash_work(q, k, causal)
+    bound_ms, bound_by = bound(nbytes, flops, q.dtype)
+    sdpa = sdpa_call(torch, q, k, v, causal=causal)
+    kernel = functools.partial(fa.flash_attention_cuda, q, k, v, causal=causal)
+    ms = cuda_ms(torch, kernel)
+    plain_ms = cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                       reps=5, inner=2)
+    library_ms = cuda_ms(torch, sdpa)
+    dev_ms, dev_sdpa = graph_ms(torch, kernel), graph_ms(torch, sdpa)
+    print(f"flash at {case} ({what}): kernel {ms:.4f} ms, device time (CUDA graph) "
+          f"{dev_ms:.4f} ms; plain {plain_ms:.4f} ms; sdpa {library_ms:.4f} ms, device "
+          f"{dev_sdpa:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP); {bound_ms / dev_ms:.1%} of its bound, "
+          f"{dev_ms / dev_sdpa:.2f}x sdpa's device time")
+    return {"shape": list(case), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "library_device_ms": dev_sdpa}
 
 
 def ssd_inputs(torch, case, seed: int, initial: bool = True):
@@ -754,6 +798,16 @@ def phase_jamba(torch, np, kernels: dict) -> dict:
     return counts
 
 
+def device_summary(events) -> tuple[int, list, float]:
+    """From a profiler's `key_averages()`: kernel launches, the device's
+    events by self time (most first), and their total device ms."""
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                                           "cudaLaunchKernelExC"))
+    kernels = sorted((e for e in events if e.device_type.name == "CUDA"),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    return launches, kernels, sum(e.self_device_time_total for e in kernels) / 1e3
+
+
 def moe_decode_profile(torch, np, cfg, model, params) -> None:
     """Where a granite decode step's time goes (batch 8 over a 512-token
     prefill, capacity 1): host enqueue against the device timeline over 3
@@ -794,12 +848,8 @@ def moe_decode_profile(torch, np, cfg, model, params) -> None:
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / 2 * 1e3
-    events = prof.key_averages()
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                                                           "cudaLaunchKernelExC"))
-    kernels = sorted((e for e in events if e.device_type.name == "CUDA"),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    launches, kernels, busy_ms = device_summary(prof.key_averages())
+    busy_ms /= 2
     print(f"moe decode profile (under the profiler): {launches / 2:.0f} kernel launches a "
           f"step, device busy {busy_ms:.1f} ms of a {wall_ms:.1f} ms step "
           f"(idle {1 - busy_ms / wall_ms:.1%})")
@@ -846,6 +896,245 @@ def phase_moe(torch, np, kernels: dict) -> tuple[int, dict]:
     jamba = phase_jamba(torch, np, kernels)
     print(f"moe phase: {time.perf_counter() - t_phase:.1f} s")
     return launches, jamba
+
+
+def whisper_run(torch, cfg, params, enc, ids, grads: bool) -> dict:
+    """Whisper's outputs on `params`' device, on the host: encoder states,
+    the prefill logits of `ids`' first 8 tokens, the logits of 8 decode
+    steps over the rest, and with `grads` `encdec_loss` of `ids` (each
+    token's label the next) and every leaf's gradient; the flash launches
+    of the forward passes."""
+    from repro_torch import tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import encdec as ED
+
+    device = tree.flatten(params)[0].device
+    enc, ids = enc.to(device), ids.to(device)
+    before = fa.launches
+    out = {}
+    with torch.no_grad():
+        out["encoder states"] = ED.encode(params, cfg, enc).float().cpu()
+        logits, caches = ED.encdec_prefill(params, cfg, enc, ids[:, :8], max_len=16)
+        out["prefill logits"] = logits[:, :cfg.vocab_size].cpu()
+        steps = []
+        for t in range(8, 16):
+            logits, caches = ED.encdec_decode_step(params, cfg, ids[:, t:t + 1], caches, t)
+            steps.append(logits[:, :cfg.vocab_size].cpu())
+        out["decode logits"] = torch.stack(steps, dim=1)
+        del caches
+    out["launches"] = fa.launches - before
+    if grads:
+        live = tree.map_leaves(lambda t: t.detach().requires_grad_(True), params)
+        loss = ED.encdec_loss(live, cfg, enc, ids[:, :-1], ids[:, 1:], loss_chunk=16)
+        out["loss"] = float(loss.detach())
+        out["grads"] = [g.cpu() for g in torch.autograd.grad(loss, tree.flatten(live))]
+    return out
+
+
+def phase_whisper_cross_check(torch, np) -> None:
+    """Full-width whisper-large-v3 cut to 2 encoder and 2 decoder layers, one
+    set of weights made on the card and copied to the host CPU; 2 requests
+    of 1500 frames and 17 tokens: encoder states, prefill logits (the flash
+    kernel on the card, the plain version on the host), 8 decode steps,
+    `encdec_loss` and every leaf's gradient. Held to CROSS_TOL in fp32
+    activations (the k biases' gradients, zero but for rounding, against
+    1e-3 of the largest leaf gradient's norm); bf16 printed."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import make_model
+
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), num_layers=2, enc_layers=2)
+    card = make_model(cfg).init(0, device="cuda")
+    host = tree.map_leaves(lambda t: t.cpu(), card)
+    rng = np.random.default_rng(13)
+    enc = torch.from_numpy(rng.standard_normal((2, 1500, cfg.d_model), dtype=np.float32))
+    enc = enc.to(torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 17)))
+    want_launches = 2 * cfg.enc_layers + cfg.num_layers
+    for dtype in ("bfloat16", "float32"):
+        L.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            t0 = time.perf_counter()
+            got = whisper_run(torch, cfg, card, enc, ids, grads=True)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = whisper_run(torch, cfg, host, enc, ids, grads=True)
+            t_host = time.perf_counter() - t0
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        held = dtype == "float32"
+        errs = {}
+        for key in ("encoder states", "prefill logits", "decode logits"):
+            a, b = got[key], want[key]
+            errs[key] = (a - b).abs().max().item()
+            errs[key + " ok"] = bool(torch.isfinite(a).all()) and bool(
+                ((a - b).abs() <= CROSS_TOL + CROSS_TOL * b.abs()).all())
+        rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        largest = max(g.norm() for g in want["grads"])
+        grad_err = max(float((a - b).norm() / torch.maximum(b.norm(), 1e-3 * largest))
+                       for a, b in zip(got["grads"], want["grads"]))
+        print(f"whisper cross-check {dtype} activations, card vs host cpu (2 + 2 layers, 2 x "
+              f"1500 frames): max|diff| encoder states {errs['encoder states']:.3e}, prefill "
+              f"logits {errs['prefill logits']:.3e}, 8 decode steps' logits "
+              f"{errs['decode logits']:.3e}; loss card {got['loss']!r}, host cpu "
+              f"{want['loss']!r}, relative diff {rel_loss:.3e}; worst leaf gradient relative L2 "
+              f"{grad_err:.3e}{f' (tol {CROSS_TOL})' if held else ' (printed only)'}; "
+              f"{got['launches']} flash launches (want {want_launches}); card {t_card:.2f} s, "
+              f"host cpu {t_host:.2f} s")
+        if got["launches"] != want_launches:
+            fail(f"whisper cross-check: {got['launches']} flash launches, want {want_launches}")
+        if held and not (all(errs[k + " ok"] for k in ("encoder states", "prefill logits",
+                                                        "decode logits"))
+                         and math.isfinite(got["loss"]) and rel_loss <= CROSS_TOL
+                         and grad_err <= CROSS_TOL):
+            fail("whisper cross-check: the card disagrees with the host CPU in fp32 activations")
+    del card, host
+
+
+def phase_whisper_prefill_vs_decode(torch, np, cfg, params) -> None:
+    """Full-depth whisper-large-v3 on the card alone, 2 requests of 1500
+    frames: teacher-forced `decode_train` logits of 16 tokens against an
+    8-token `encdec_prefill` and 8 `encdec_decode_step`s over the self and
+    cross caches. Held to CROSS_TOL in fp32 activations, bf16 printed."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+
+    rng = np.random.default_rng(14)
+    enc = torch.from_numpy(rng.standard_normal((2, 1500, cfg.d_model), dtype=np.float32))
+    enc = enc.to("cuda", torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))).cuda()
+    v = cfg.vocab_size
+    for dtype in ("bfloat16", "float32"):
+        L.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            with torch.no_grad():
+                h = ED.decode_train(params, cfg, ED.encode(params, cfg, enc), ids)
+                ref = LM.logits_from_hidden(params, cfg, h)[..., :v]
+                logits, caches = ED.encdec_prefill(params, cfg, enc, ids[:, :8], max_len=16)
+                got = [logits[:, :v]]
+                for t in range(8, 16):
+                    logits, caches = ED.encdec_decode_step(params, cfg, ids[:, t:t + 1],
+                                                           caches, t)
+                    got.append(logits[:, :v])
+                del caches
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        a, b = torch.stack(got, dim=1).float(), ref[:, 7:].float()
+        err = (a - b).abs()
+        held = dtype == "float32"
+        ok = bool(torch.isfinite(a).all()) and bool((err <= CROSS_TOL + CROSS_TOL * b.abs()).all())
+        print(f"{cfg.name}: teacher-forced logits vs 8-token prefill then 8 decode steps, "
+              f"{dtype} activations: max|diff| {err.max().item():.3e}"
+              f"{f' (tol {CROSS_TOL})' if held else ' (printed only)'}; argmax agrees on "
+              f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.2%} of 18 positions")
+        if held and not ok:
+            fail(f"{cfg.name}: prefill and decode disagree with teacher forcing in fp32 "
+                 f"activations")
+
+
+def whisper_prefill_profile(torch, np, cfg, params) -> None:
+    """Where the driver's prefill time goes once warm (8 requests of 1500
+    frames, an 8-token prompt, bf16 activations): the host clock against the
+    device timeline over 3 calls (CUDA events), then `torch.profiler` over
+    1: kernel launches, the device's busy time and idle share, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import encdec as ED
+
+    rng = np.random.default_rng(15)
+    enc = torch.from_numpy(rng.standard_normal((8, 1500, cfg.d_model), dtype=np.float32))
+    enc = enc.to("cuda", torch.bfloat16)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 8))).cuda()
+
+    def prefill():
+        return ED.encdec_prefill(params, cfg, enc, ids, max_len=40, q_chunk=512)
+
+    with torch.no_grad():
+        prefill()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(3):
+            prefill()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"whisper prefill profile (warm): wall {wall_ms:.1f} ms a call, device timeline "
+              f"{start.elapsed_time(end) / 3:.1f} ms (3 calls, no sync inside)")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    launches, kernels, busy_ms = device_summary(prof.key_averages())
+    print(f"whisper prefill profile (under the profiler): {launches} kernel launches, device "
+          f"busy {busy_ms:.1f} ms of a {wall_ms:.1f} ms call (idle {1 - busy_ms / wall_ms:.1%})")
+    for e in kernels[:8]:
+        print(f"whisper prefill profile: device {e.self_device_time_total / 1e3:.2f} ms "
+              f"({e.count} calls): {e.key[:90]}")
+
+
+def phase_whisper(torch, np, kernels: dict) -> int:
+    """The encoder-decoder path: full-width whisper-large-v3 served by the
+    port's driver (the kernels' counts set to 0 just before and read just
+    after: one unmasked flash launch per encoder layer and one causal per
+    decoder layer, no scan), then the 2-layer card-vs-host check and the
+    full-depth prefill-vs-decode check. Returns the driver run's flash
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import make_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper-large-v3")
+    model = make_model(cfg)
+    cross_bytes = (2 * cfg.num_layers * 8 * 1500 * cfg.num_kv_heads * cfg.head_dim * 2)
+    print(f"{cfg.name}: {model.param_count():,} parameters ({model.param_count() * 4 / 1e9:.2f} "
+          f"GB in fp32), {cfg.enc_layers} encoder and {cfg.num_layers} decoder layers; cross "
+          f"caches at 8 x 1500 frames {cross_bytes / 1e9:.2f} GB in bf16")
+    log = RestoreLog()
+    ckpt_log = logging.getLogger("repro_torch.ckpt")
+    ckpt_log.setLevel(logging.INFO)
+    ckpt_log.addHandler(log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for mod in kernels.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = serve.main(WHISPER_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        ckpt_log.removeHandler(log)
+    wall = time.perf_counter() - t0
+    counts = {name: mod.launches for name, mod in kernels.items()}
+    for sp in log.splits:
+        print(f"serve {cfg.name}: the driver's restore waited {sp['reader_s']:.3f} s on the "
+              f"reader and {sp['h2d_wait_s']:.3f} s on host-to-device copies (digest "
+              f"{sp['digest_s']:.3f} s, staging {sp['stage_s']:.3f} s, restore loop "
+              f"{sp['total_s']:.3f} s)")
+    want = {"flash_attention": cfg.enc_layers + cfg.num_layers, "ssd_scan": 0}
+    print(f"serve {cfg.name} (launch.serve {' '.join(WHISPER_ARGS)}): {wall:.1f} s with publish "
+          f"and restore; peak {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above "
+          f"the {base / 1e9:.2f} GB held before; kernel launches {counts} (want {want})")
+    if counts != want:
+        fail(f"{cfg.name}: kernel launches {counts}, want {want}")
+    if out.shape != (8, 32) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"{cfg.name}: generated ids of shape {out.shape} in [{out.min()}, {out.max()}], "
+             f"want (8, 32) in [0, {cfg.vocab_size})")
+    phase_whisper_cross_check(torch, np)
+    params = model.init(1, device="cuda")
+    phase_whisper_prefill_vs_decode(torch, np, cfg, params)
+    whisper_prefill_profile(torch, np, cfg, params)
+    del params
+    print(f"encoder-decoder phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts["flash_attention"]
 
 
 class RestoreLog(logging.Handler):
@@ -1123,11 +1412,8 @@ def phase_train_profile(torch, np) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / 2 * 1e3
     events = prof.key_averages()
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
-                                                           "cudaLaunchKernelExC"))
-    kernels = sorted((e for e in events if e.device_type.name == "CUDA"),
-                     key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    launches, kernels, busy_ms = device_summary(events)
+    busy_ms /= 2
     print(f"train profile (under the profiler): {launches / 2:.0f} kernel launches a step, "
           f"device busy {busy_ms:.1f} ms of a {wall_ms:.1f} ms step "
           f"(idle {1 - busy_ms / wall_ms:.1%})")
@@ -1495,12 +1781,16 @@ def main() -> None:
     del params
 
     granite, jamba = phase_moe(torch, np, kernels)
-    # phase_serve fails unless granite's serve run launched no scan.
+    whisper = phase_whisper(torch, np, kernels)
+    # phase_serve fails unless granite's serve run launched no scan, and
+    # phase_whisper unless whisper's did not.
     flash["launches_by_config"] = {"smollm-135m": flash["launches"],
                                    "granite-moe-3b-a800m": granite,
-                                   "jamba-1.5-large-398b-reduced": jamba["flash_attention"]}
+                                   "jamba-1.5-large-398b-reduced": jamba["flash_attention"],
+                                   "whisper-large-v3": whisper}
     scan["launches_by_config"] = {"mamba2-1.3b": scan["launches"], "granite-moe-3b-a800m": 0,
-                                  "jamba-1.5-large-398b-reduced": jamba["ssd_scan"]}
+                                  "jamba-1.5-large-398b-reduced": jamba["ssd_scan"],
+                                  "whisper-large-v3": 0}
 
     phase_train(torch, np, kernels)
     phase_usecases(torch, np)

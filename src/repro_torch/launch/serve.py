@@ -3,12 +3,17 @@ it through Rolling Prefetch (cold-start latency is a first-order cost at
 serving scale, and checkpoint restore is exactly the sequential
 multi-object stream the paper optimizes), then batched prefill + greedy or
 sampled decode with decode caches (attention KV caches, Mamba conv/SSM
-states), on the GPU by default.
+states, an encoder-decoder's cross caches), on the GPU by default.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --full \
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full \
       --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --full \
+      --batch 8 --prompt-len 1500 --gen 32
+
+For an encoder-decoder, --prompt-len is the encoder's frame count (stub
+frame embeddings) and the decoder's prompt is 8 tokens.
 
 --quant int8 arrives in a later slice of the port.
 """
@@ -24,6 +29,7 @@ import torch
 from repro_torch.ckpt.manager import restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.io import IOPolicy, open_store
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 from repro_torch.models import make_model
 
@@ -33,7 +39,8 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> np.ndarray:
+    """Run the driver; returns the generated token ids, (batch, gen)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="smollm-135m")
@@ -86,23 +93,42 @@ def main(argv: list[str] | None = None) -> None:
     # --- batched prefill -------------------------------------------------------
     b, s = args.batch, args.prompt_len
     rng = np.random.default_rng(args.seed)
-    if cfg.embed_inputs:
-        inputs = torch.from_numpy(
+
+    def frames() -> torch.Tensor:
+        return torch.from_numpy(
             rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
         ).to(device, torch.bfloat16)
+
+    if cfg.is_encdec:
+        enc_inputs = frames()
+        inputs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 8))).to(device)
+    elif cfg.embed_inputs:
+        inputs = frames()
     else:
         inputs = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(device)
 
     # Decode needs cache headroom for generated tokens.
-    caches = LM.make_stack_cache(cfg, b, s + args.gen, device=device)
+    prompt_tokens = inputs.shape[1]
+    max_len = prompt_tokens + args.gen
     _sync(device)
     t0 = time.perf_counter()
-    h, caches, _ = LM.lm_hidden(params, cfg, inputs, caches=caches, update_cache=True,
-                                q_chunk=min(512, s))
-    logits = LM.logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0]
+    if cfg.is_encdec:
+        # Encoder over the frames, its per-layer cross caches, then the
+        # decoder prompt through the stack with its caches.
+        logits, caches = ED.encdec_prefill(params, cfg, enc_inputs, inputs,
+                                           max_len=max_len, q_chunk=min(512, s))
+    else:
+        caches = LM.make_stack_cache(cfg, b, max_len, device=device)
+        h, caches, _ = LM.lm_hidden(params, cfg, inputs, caches=caches, update_cache=True,
+                                    q_chunk=min(512, s))
+        logits = LM.logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0]
     _sync(device)
     dt = time.perf_counter() - t0
-    print(f"prefill: {dt:.3f}s ({b * s / dt:.0f} tok/s)")
+    if cfg.is_encdec:
+        print(f"prefill: {dt:.3f}s ({b * s / dt:.0f} frames/s encoded, "
+              f"{b} prompts of {prompt_tokens} tokens)")
+    else:
+        print(f"prefill: {dt:.3f}s ({b * s / dt:.0f} tok/s)")
 
     # --- decode loop -----------------------------------------------------------
     gen = torch.Generator(device=device)
@@ -119,12 +145,12 @@ def main(argv: list[str] | None = None) -> None:
     generated = [tok]
     t0 = time.perf_counter()
     for i in range(args.gen - 1):
-        if cfg.embed_inputs:
+        if cfg.embed_inputs and not cfg.is_encdec:
             # VLM decode consumes token embeddings from the text table.
             step_in = params["embed"]["table"][tok[:, 0]][:, None, :].to(torch.bfloat16)
         else:
             step_in = tok
-        logits, caches = model.decode_step(params, step_in, caches, s + i)
+        logits, caches = model.decode_step(params, step_in, caches, prompt_tokens + i)
         tok = pick(logits)
         generated.append(tok)
     _sync(device)
@@ -133,6 +159,7 @@ def main(argv: list[str] | None = None) -> None:
     print(f"decoded {args.gen} tokens x {b} seqs in {dt:.3f}s "
           f"({b * args.gen / dt:.1f} tok/s)")
     print("sample token ids:", out[0, :16])
+    return out
 
 
 if __name__ == "__main__":

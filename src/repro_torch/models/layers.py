@@ -1,13 +1,15 @@
-"""Shared transformer layers: norms, RoPE, GQA attention, gated MLP.
+"""Shared transformer layers: norms, RoPE, sinusoidal positions, GQA and
+cross attention, gated MLP.
 
 The port of the JAX package's ``models/layers.py``, dense parts, with its
 layouts: activations are (B, S, H, D_h), ``wq`` is (d, Hq, D_h) and ``wo``
 is (Hq, D_h, d). Matmuls run in bf16 on fp32 parameters cast at use, with
-fp32 norm, softmax and score accumulation. Prefill attention (a query block
-at position 0 against an empty or absent cache) with no input that needs a
-gradient goes through `ops.flash_attention` (the flash kernel for CUDA
-tensors, forward only); every other case, training included, through the
-plain `_attn_core`, differentiable by autograd. The Mamba mixer is in
+fp32 norm, softmax and score accumulation. Self-attention of a query block
+at position 0 against an empty or absent cache (causal prefill, or the
+encoder's non-causal pass) with no input that needs a gradient goes through
+`ops.flash_attention` (the flash kernel for CUDA tensors, forward only);
+every other case, training and cross-attention included, through the plain
+`_attn_core`, differentiable by autograd. The Mamba mixer is in
 ``models/ssd.py``.
 """
 
@@ -76,6 +78,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(seq_len: int, d_model: int, offset: int = 0) -> torch.Tensor:
+    """(seq_len, d_model) fp32 table of positions offset .. offset + seq_len - 1:
+    sin on even columns, cos on odd ones, the reference's fp32 formula.
+    Computed on the host, so the card and the host CPU add the same table:
+    their `pow` and `sin` may differ in the last bit, and one bit of an
+    angle near position 1500 is 1.2e-4."""
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d_model)
+    pe = torch.zeros((seq_len, d_model), dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
 # --------------------------------------------------------------------------- #
 # Embedding
 # --------------------------------------------------------------------------- #
@@ -99,7 +116,7 @@ def output_table(p: dict) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Attention (GQA, RoPE, KV cache)
+# Attention (GQA, RoPE, KV cache, cross-attention)
 # --------------------------------------------------------------------------- #
 @dataclass
 class KVCache:
@@ -196,13 +213,17 @@ def attention(
     q_chunk: int = 512,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Positions of x are start .. start + S - 1 in every row, as in every
-    caller of the JAX package's `attention`."""
+    caller of the JAX package's `attention`. With `kv_source` (training's
+    cross-attention) k/v come from that sequence, unmasked; a cache passed
+    without `update_cache` (the decoder's cross cache at prefill and decode)
+    is read as it is."""
     rope = cfg.use_rope and kv_source is None
     b, s, _ = x.shape
     positions = torch.arange(start, start + s, device=x.device)
-    # A causal query block at position 0 against an empty or absent cache
-    # sees exactly its own k/v under the kernel's top-left mask.
-    prefill = (kv_source is None and causal and start == 0
+    # A query block at position 0 against an empty or absent cache sees
+    # exactly its own k/v: all of them (the encoder), or under the kernel's
+    # top-left causal mask.
+    prefill = (kv_source is None and start == 0
                and (cache is None or (update_cache and cache.length == 0)))
 
     q = _project(x, p["wq"])
@@ -216,14 +237,8 @@ def attention(
         k, v, kv_len = cache.k, cache.v, cache.length
         new_cache = cache
     else:
-        src = kv_source if kv_source is not None else x
-        k = _project(src, p["wk"])
-        v = _project(src, p["wv"])
-        if "bk" in p:
-            k = k + p["bk"].to(x.dtype)
-            v = v + p["bv"].to(x.dtype)
-        if cfg.qk_norm:
-            k = apply_norm(p["k_norm"], cfg, k)
+        kv = compute_kv(p, cfg, kv_source if kv_source is not None else x)
+        k, v = kv.k, kv.v
         if rope:
             k = apply_rope(k, positions, cfg.rope_theta)
         if cache is not None:
@@ -251,7 +266,7 @@ def attention(
         # (B, S, H, D) -> (B, H, S, D) strided views; the kernel writes its
         # output in q's memory layout, so the transpose back is free.
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True).transpose(1, 2)
+                                  v.transpose(1, 2), causal=causal).transpose(1, 2)
     else:
         out = _attn_core(q, k, v, causal=causal and kv_source is None,
                          q_offset=start, kv_valid_len=kv_len, q_chunk=q_chunk)
@@ -260,6 +275,20 @@ def attention(
     if "bo" in p:
         y = y + p["bo"].to(x.dtype)
     return y, new_cache
+
+
+def compute_kv(p: dict, cfg: ModelConfig, src: torch.Tensor) -> KVCache:
+    """A read-only KV cache of `src` (encoder states, for cross-attention at
+    prefill and decode), in `src`'s dtype, which is the activations' dtype
+    as `make_cache`'s default is; its host `length` is the source length."""
+    k = _project(src, p["wk"])
+    v = _project(src, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"].to(src.dtype)
+        v = v + p["bv"].to(src.dtype)
+    if cfg.qk_norm:
+        k = apply_norm(p["k_norm"], cfg, k)
+    return KVCache(k=k, v=v, length=src.shape[1])
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,

@@ -1,16 +1,18 @@
-"""Decoder-only LM backbone: attention or Mamba mixers, each with a dense
-FFN, a Mixture-of-Experts FFN (``models/moe.py``) or none.
+"""LM backbone: attention or Mamba mixers, each with a dense FFN, a
+Mixture-of-Experts FFN (``models/moe.py``) or none, and in an
+encoder-decoder's decoder blocks a cross-attention to the encoder
+(``models/encdec.py``).
 
 The port of the JAX package's ``models/lm.py``. The layer stack is
-`cfg.periods` repetitions of the config's block pattern with parameters
-stacked on a leading periods axis; `stack_fwd` walks that axis in a Python
-loop, each period recomputed in the backward pass when `remat` is set.
-Decode caches (attention KV caches and Mamba conv/SSM states) are stacked
-the same way and updated in place. MoE blocks return a Switch auxiliary
-loss, summed over the stack. The training loss is `lm_loss`: the hidden
-states, then `chunked_xent` over the output table, plus the weighted aux
-term for MoE configs. The cross-attention and encoder-decoder branches are
-not ported yet and raise.
+`cfg.periods` repetitions of the config's block pattern (or the given
+`pattern` and periods: the encoder's stack, which keeps no cache) with
+parameters stacked on a leading periods axis; `stack_fwd` walks that axis in a Python loop, each
+period recomputed in the backward pass when `remat` is set. Decode caches
+(attention KV caches, read-only cross-attention caches and Mamba conv/SSM
+states) are stacked the same way and updated in place. MoE blocks return
+a Switch auxiliary loss, summed over the stack. The training loss is
+`lm_loss`: the hidden states, then `chunked_xent` over the output table,
+plus the weighted aux term for MoE configs.
 """
 
 from __future__ import annotations
@@ -30,10 +32,9 @@ NEG_INF = -1e30
 
 
 def _check_block(cfg: ModelConfig, bd: BlockDef) -> None:
-    if bd.mixer not in ("attn", "mamba") or bd.ffn not in ("dense", "moe", None) \
-            or bd.cross_attn or cfg.is_encdec:
+    if bd.mixer not in ("attn", "mamba") or bd.ffn not in ("dense", "moe", None):
         raise NotImplementedError(
-            f"{cfg.name}: block {bd} is not ported yet; the port covers attention "
+            f"{cfg.name}: block {bd} is not ported; the port covers attention "
             f"and Mamba mixers with a dense or MoE FFN or none")
 
 
@@ -47,6 +48,9 @@ def block_spec(cfg: ModelConfig, bd: BlockDef) -> dict:
         spec["attn"] = L.attention_spec(cfg)
     else:
         spec["mamba"] = S.mamba_spec(cfg)
+    if bd.cross_attn:
+        spec["norm_cross"] = L.norm_spec(cfg)
+        spec["cross"] = L.attention_spec(cfg)
     if bd.ffn is not None and not cfg.parallel_block:
         spec["norm2"] = L.norm_spec(cfg)
     if bd.ffn == "dense":
@@ -57,11 +61,18 @@ def block_spec(cfg: ModelConfig, bd: BlockDef) -> dict:
 
 
 def make_block_cache(cfg: ModelConfig, bd: BlockDef, batch: int, max_len: int,
-                     *, device, length: int = 0) -> dict:
+                     *, device, cross_len: int = 0, length: int = 0) -> dict:
+    """The block's decode caches; a cross-attention block's `"cross"` cache
+    holds `cross_len` positions, all valid."""
     _check_block(cfg, bd)
+    cache: dict = {}
     if bd.mixer == "attn":
-        return {"attn": L.make_cache(cfg, batch, max_len, device=device, length=length)}
-    return {"mamba": S.make_mamba_cache(cfg, batch, device=device)}
+        cache["attn"] = L.make_cache(cfg, batch, max_len, device=device, length=length)
+    else:
+        cache["mamba"] = S.make_mamba_cache(cfg, batch, device=device)
+    if bd.cross_attn:
+        cache["cross"] = L.make_cache(cfg, batch, cross_len, device=device, length=cross_len)
+    return cache
 
 
 def block_fwd(
@@ -73,10 +84,14 @@ def block_fwd(
     start: int,
     cache: dict | None = None,
     update_cache: bool = False,
+    enc_hidden: torch.Tensor | None = None,
+    causal: bool = True,
     q_chunk: int = 512,
 ) -> tuple[torch.Tensor, dict, torch.Tensor | None]:
     """Returns (x, new_cache, aux): aux is the MoE FFN's load-balancing loss,
-    None for a block with no MoE FFN (where the reference returns a zero)."""
+    None for a block with no MoE FFN (where the reference returns a zero).
+    A cross-attention block attends to `enc_hidden` when given (training),
+    else to its read-only `"cross"` cache, which it passes on unchanged."""
     _check_block(cfg, bd)
     new_cache: dict = {}
     rm = torch.tensor(cfg.residual_multiplier, dtype=x.dtype)
@@ -86,6 +101,7 @@ def block_fwd(
         attn_out, kv = L.attention(
             p["attn"], cfg, h,
             start=start,
+            causal=causal,
             cache=None if cache is None else cache.get("attn"),
             update_cache=update_cache,
             q_chunk=q_chunk,
@@ -109,6 +125,20 @@ def block_fwd(
         return x, new_cache, aux
 
     x = x + rm * attn_out
+
+    if bd.cross_attn:
+        hc = L.apply_norm(p["norm_cross"], cfg, x)
+        if enc_hidden is not None:
+            cross_out, _ = L.attention(p["cross"], cfg, hc, start=start, causal=False,
+                                       kv_source=enc_hidden, q_chunk=q_chunk)
+        else:
+            cross_out, _ = L.attention(p["cross"], cfg, hc, start=start, causal=False,
+                                       cache=cache.get("cross") if cache else None,
+                                       update_cache=False, q_chunk=q_chunk)
+        x = x + rm * cross_out
+        if cache is not None and "cross" in cache:
+            new_cache["cross"] = cache["cross"]
+
     if bd.ffn is not None:
         h2 = L.apply_norm(p["norm2"], cfg, x)
         ffn_out, aux = _ffn(p["ffn"], cfg, bd, h2)
@@ -126,9 +156,12 @@ def _ffn(p: dict, cfg: ModelConfig, bd: BlockDef,
 # --------------------------------------------------------------------------- #
 # Stack (loop over periods)
 # --------------------------------------------------------------------------- #
-def stack_spec(cfg: ModelConfig) -> dict:
-    period = {f"block{i}": block_spec(cfg, bd) for i, bd in enumerate(cfg.pattern)}
-    return stacked(cfg.periods, period)
+def stack_spec(cfg: ModelConfig, pattern: tuple[BlockDef, ...] | None = None,
+               periods: int | None = None) -> dict:
+    pattern = pattern if pattern is not None else cfg.pattern
+    periods = periods if periods is not None else cfg.periods
+    period = {f"block{i}": block_spec(cfg, bd) for i, bd in enumerate(pattern)}
+    return stacked(periods, period)
 
 
 def _tensor_fields(cache) -> dict:
@@ -142,13 +175,15 @@ def _host_fields(cache) -> dict:
 
 
 def make_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-                     length: int = 0) -> dict:
-    """One cache per block of the pattern (a `KVCache` or a `MambaCache`),
-    its buffers stacked over periods: k/v are (periods, B, max_len, H_kv,
-    D_h), the Mamba ssm state (periods, B, H, P, N)."""
+                     cross_len: int = 0, length: int = 0) -> dict:
+    """One cache per block of the pattern (a `KVCache` or a `MambaCache`, and
+    a cross-attention block's `"cross"` `KVCache`), its buffers stacked over
+    periods: k/v are (periods, B, max_len, H_kv, D_h), the Mamba ssm state
+    (periods, B, H, P, N)."""
     out = {}
     for i, bd in enumerate(cfg.pattern):
-        one = make_block_cache(cfg, bd, batch, max_len, device=device, length=length)
+        one = make_block_cache(cfg, bd, batch, max_len, device=device, cross_len=cross_len,
+                               length=length)
         out[f"block{i}"] = {
             name: dataclasses.replace(c, **{
                 k: t.unsqueeze(0).repeat(cfg.periods, *([1] * t.ndim))
@@ -156,6 +191,16 @@ def make_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
             for name, c in one.items()
         }
     return out
+
+
+def _num_periods(tree: dict) -> int | None:
+    """The leading axis of the stacked tree's first leaf (None if it has
+    none); walks no further than that leaf."""
+    for v in tree.values():
+        n = _num_periods(v) if isinstance(v, dict) else v.shape[0]
+        if n is not None:
+            return n
+    return None
 
 
 def _unstack(tree: dict, n: int) -> list[dict]:
@@ -175,15 +220,19 @@ def stack_fwd(
     start: int,
     caches: dict | None = None,
     update_cache: bool = False,
+    enc_hidden: torch.Tensor | None = None,
+    causal: bool = True,
     q_chunk: int = 512,
     remat: bool = False,
+    pattern: tuple[BlockDef, ...] | None = None,
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Run the periods in order over the residual stream. Each period's
     cache is a view into the stacked buffers, so the blocks' in-place
     updates land there directly; host-side fields (the KV length) are
     taken from the last period's cache. Returns (x, new_caches, aux): aux
     is the sum of the MoE blocks' aux losses in block order (a 0-d fp32
-    zero with no MoE block).
+    zero with no MoE block). The period count is the parameters' leading
+    axis, as in the reference: the encoder's stack has its own.
 
     `remat` (training, no caches) recomputes each period in the backward
     pass instead of keeping its activations, as `jax.checkpoint(period_fn)`
@@ -191,13 +240,14 @@ def stack_fwd(
     not change before the backward pass."""
     if remat and caches is not None:
         raise ValueError("remat recomputes periods in training, which updates no cache")
+    pattern = pattern if pattern is not None else cfg.pattern
     host: dict = {}
-    periods = _unstack(p_stack, cfg.periods)
+    periods = _unstack(p_stack, _num_periods(p_stack))
 
     def period(x: torch.Tensor, aux: torch.Tensor,
                idx: int) -> tuple[torch.Tensor, torch.Tensor]:
         pp = periods[idx]
-        for i, bd in enumerate(cfg.pattern):
+        for i, bd in enumerate(pattern):
             name = f"block{i}"
             pc = None if caches is None else {
                 key: dataclasses.replace(c, **{k: t[idx] for k, t in _tensor_fields(c).items()})
@@ -208,6 +258,8 @@ def stack_fwd(
                 start=start,
                 cache=pc,
                 update_cache=update_cache,
+                enc_hidden=enc_hidden,
+                causal=causal,
                 q_chunk=q_chunk,
             )
             if block_aux is not None:
@@ -216,7 +268,7 @@ def stack_fwd(
         return x, aux
 
     aux = x.new_zeros((), dtype=torch.float32)
-    for idx in range(cfg.periods):
+    for idx in range(len(periods)):
         x, aux = (checkpoint(period, x, aux, idx, use_reentrant=False) if remat
                   else period(x, aux, idx))
     if caches is None:

@@ -27,8 +27,12 @@ FLASH_CASES = [
     (2, 4, 2, 256, 256, 64, True, jnp.bfloat16),
     (1, 2, 2, 512, 512, 128, True, jnp.bfloat16),
     (1, 4, 4, 128, 128, 32, False, jnp.float32),
-    # ... plus causal with Sq != Sk, where the kernel's mask is top-left.
+    # ... plus causal with Sq != Sk, where the kernel's mask is top-left ...
     (1, 2, 2, 128, 256, 32, True, jnp.float32),
+    # ... and reduced whisper-large-v3's encoder self-attention, unmasked
+    # (batch 2, 4 heads of 16, 16 frames).
+    (2, 4, 4, 16, 16, 16, False, jnp.float32),
+    (2, 4, 4, 16, 16, 16, False, jnp.bfloat16),
 ]
 
 
@@ -90,6 +94,20 @@ def test_causal_rows_see_only_their_prefix():
     out = ops.flash_attention(q, k, v, causal=True)
     torch.testing.assert_close(out[0, 0, :, 0], torch.arange(sq) / 2.0,
                                rtol=1e-4, atol=1e-4)
+
+
+def test_relative_limit_sees_an_unmasked_ragged_tail():
+    """At whisper-large-v3's encoder length the last 64-column k tile holds
+    28 keys. A kernel that read its 36 padding columns as zero keys would
+    shrink every output by about 1.5%: inside the elementwise bf16 limit,
+    and over twice the relative L2 limit (5e-3) that chip_smoke.py and
+    tests/test_torch_cuda_encdec.py also hold the CUDA kernel to."""
+    _, (q, k, v) = _inputs((1, 2, 2, 64, 1500, 64, False, jnp.float32), 5)
+    ref = fa.flash_attention_plain(q, k, v, causal=False)
+    k_pad, v_pad = (torch.nn.functional.pad(t, (0, 0, 0, 36)) for t in (k, v))
+    err = fa.flash_attention_plain(q, k_pad, v_pad, causal=False) - ref
+    assert bool((err.abs() <= 2e-2 + 2e-2 * ref.abs()).all())
+    assert (err.norm() / ref.norm()).item() > 2 * 5e-3
 
 
 def test_cpu_tensors_take_the_plain_version_without_launching():

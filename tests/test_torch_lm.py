@@ -41,7 +41,6 @@ DENSE = sorted(n for n, c in jax_all_configs().items()
                if c.pattern == (BlockDef("attn", "dense"),) and not c.is_encdec)
 MOE = sorted(n for n, c in jax_all_configs().items() if c.is_moe)
 PORTED = DENSE + ["mamba2-1.3b"] + MOE
-OTHER = sorted(set(jax_all_configs()) - set(PORTED))
 MAMBA_LEAVES = ("conv_x", "conv_b", "conv_c", "ssm")
 
 
@@ -228,7 +227,7 @@ def _jax_spec_leaves(spec) -> dict:
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", PORTED + ["whisper-large-v3"])
 def test_spec_matches_jax(name, reduced):
     jcfg, cfg = _cfgs(name, reduced=reduced)
     want = _jax_spec_leaves(jax_make_model(jcfg).spec())
@@ -242,10 +241,22 @@ def test_spec_matches_jax(name, reduced):
     assert model.param_count() == jax_make_model(jcfg).param_count()
 
 
-@pytest.mark.parametrize("name", OTHER)
-def test_unported_blocks_raise(name):
-    with pytest.raises(NotImplementedError):
-        make_model(get_config(name).reduced()).spec()
+@pytest.mark.parametrize("block", [BlockDef("conv", "dense"), BlockDef("attn", "glu"),
+                                   BlockDef("rwkv", None, cross_attn=True)],
+                         ids=["mixer", "ffn", "cross-mixer"])
+def test_unported_blocks_raise(block):
+    """Every config of the repo builds (whisper-large-v3 since its
+    encoder-decoder port); a block of a mixer or FFN kind the port does not
+    know still raises, in the spec, the caches and the forward."""
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), pattern=(block,))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_model(cfg).spec()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        LM.make_block_cache(cfg, block, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        LM.block_fwd({}, cfg, block, torch.zeros(1, 4, cfg.d_model), start=0)
+    assert all(make_model(c.reduced()).param_count() > 0
+               for c in map(get_config, jax_all_configs()))
 
 
 def test_decode_helpers_match_jax():
