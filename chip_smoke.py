@@ -54,6 +54,24 @@ Phases, each of which exits non-zero on a failed check:
      activations, bf16 printed; the driver's restore split (reader,
      digest, staging, host-to-device waits) and a profile of a warm
      full-size prefill (launches, device busy and idle share, top kernels);
+  3h. int8 weight-only serving (after 3g): full-width, full-depth
+     codeqwen1.5-7b (32 layers, 32/32 heads of 128) through the port's
+     driver with --quant int8, 8 prompts of 512 tokens and 32 new tokens
+     each, its fp32 weights published to and restored from a simulated
+     store at 10 ms a request and 2000 MB/s, then quantized on the card:
+     the reference's 10 quantized tensors, every layer's prefill attention
+     through the flash kernel at head dim 128 (32 launches), no scan, ids
+     in range; peak memory, the restore split and the host's MemAvailable
+     printed. Then codeqwen cut to 2 layers: quantized on the card and on
+     the host CPU from one set of weights, q and scale equal bit for bit;
+     the int8 model's prefill logits and 8 decode steps, card vs host, held
+     in fp32 activations, bf16 printed. Full depth on the card: int8
+     against a bf16 copy of the same weights, max |diff| over max |logit|
+     below 0.35 (tests/test_quant.py); a warm decode step and a warm
+     prefill profiled with each (launches, host enqueue, device busy and
+     idle share, top kernels) and the dequantization chain of each replayed
+     alone beside its bytes' bound. Then examples/torch/serve_batched.py in
+     a process of its own must exit 0 with its OK line;
   3c. restore: full-width smollm-135m weights published to a simulated
      object store (10 ms a request, 160 MB/s) and restored onto the card
      with rolling prefetch (through `ServeEngine.from_store`, which then
@@ -99,6 +117,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import logging
 import math
@@ -157,11 +176,19 @@ FLASH_CASES = [
     (2, 4, 2, 200, 200, 128, True, "bfloat16"),
     (1, 2, 2, 128, 256, 64, True, "bfloat16"),
     (1, 4, 2, 77, 130, 32, False, "bfloat16"),
+    # codeqwen1.5-7b's serving waves (MHA, 32 heads of 128: the D = 128
+    # instantiation on a model path) and its fp32 card-vs-host shape; last
+    # in the list, so the earlier cases keep their seeds.
+    (8, 32, 32, 512, 512, 128, True, "bfloat16"),
+    (4, 32, 32, 128, 128, 128, True, "bfloat16"),
+    (2, 32, 32, 128, 128, 128, True, "float32"),
 ]
 SLICE_SHAPE = (8, 9, 3, 512, 512, 64, True, "bfloat16")
 WAVE2_SHAPE = (4, 9, 3, 128, 128, 64, True, "bfloat16")
 GRANITE_SHAPE = (8, 24, 8, 512, 512, 64, True, "bfloat16")
 WHISPER_SHAPE = (8, 20, 20, 1500, 1500, 64, False, "bfloat16")
+CODEQWEN_SHAPE = (8, 32, 32, 512, 512, 128, True, "bfloat16")
+CODEQWEN_WAVE2 = (4, 32, 32, 128, 128, 128, True, "bfloat16")
 SSD_CASES = [
     # (b, s, h, g, p, n, chunk, dtype): the JAX package's test sweep ...
     (1, 128, 4, 1, 32, 32, 32, "float32"),
@@ -215,6 +242,16 @@ CROSS_TOL = 1e-4           # relative, card vs host CPU in fp32 activations
 WHISPER_ARGS = ["--arch", "whisper-large-v3", "--full", "--batch", "8", "--prompt-len", "1500",
                 "--gen", "32", "--store", "sims3://whisper?latency_ms=10&bw_mbps=2000",
                 "--device", "cuda", "--seed", "0"]
+# The int8 serving phase: the driver at full width and depth with --quant
+# int8, its weight store at 25x the driver's default bandwidth (as
+# whisper's); the reference's count of quantized tensors for codeqwen1.5-7b
+# (pinned in tests/test_torch_quant.py) and its limit on int8 logits' drift,
+# max |diff| over max |logit| (tests/test_quant.py).
+CODEQWEN_ARGS = ["--arch", "codeqwen1.5-7b", "--full", "--quant", "int8", "--batch", "8",
+                 "--prompt-len", "512", "--gen", "32", "--store",
+                 "sims3://codeqwen?latency_ms=10&bw_mbps=2000", "--device", "cuda", "--seed", "0"]
+CODEQWEN_QUANTIZED = 10
+QUANT_RATIO_TOL = 0.35
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
 # The flash kernel is also held to |out - ref| / |ref| over the whole output
 # (L2 norms). Over 1500 keys an output is about 0.04 in size, so the
@@ -376,6 +413,10 @@ def phase_kernels(torch, fa) -> dict:
     flash_timing(torch, fa, WAVE2_SHAPE, "the 128-token wave", seed=2)
     flash_timing(torch, fa, GRANITE_SHAPE, "granite-moe-3b-a800m's 512-token wave", seed=3)
     whisper = flash_timing(torch, fa, WHISPER_SHAPE, "whisper-large-v3's encoder", seed=4)
+    codeqwen = [flash_timing(torch, fa, CODEQWEN_SHAPE, "codeqwen1.5-7b's 512-token wave, D 128",
+                             seed=5),
+                flash_timing(torch, fa, CODEQWEN_WAVE2, "codeqwen1.5-7b's 128-token wave, D 128",
+                             seed=6)]
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -388,6 +429,7 @@ def phase_kernels(torch, fa) -> dict:
         "bound_by": bound_by,
         "library_ms": library_ms,
         "whisper_encoder": whisper,
+        "codeqwen_waves": codeqwen,
     }
 
 
@@ -1137,6 +1179,327 @@ def phase_whisper(torch, np, kernels: dict) -> int:
     return counts["flash_attention"]
 
 
+def mem_available_gb() -> float:
+    """The host's MemAvailable (/proc/meminfo), in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal dtype, shape and bytes, wherever each tensor lies."""
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def recorded_dequants(fn) -> list:
+    """Run `fn()` once and return the (QTensor, dtype) of every `QTensor.to`
+    call it made: the dequantizations of one prefill or decode step."""
+    from repro_torch.models.quant import QTensor
+
+    real, calls = QTensor.to, []
+
+    def spy(self, dtype):
+        calls.append((self, dtype))
+        return real(self, dtype)
+
+    QTensor.to = spy
+    try:
+        fn()
+    finally:
+        QTensor.to = real
+    return calls
+
+
+def quant_profile(torch, np, cfg, model, params, label: str, what: str) -> dict:
+    """Where a warm codeqwen1.5-7b `what` ("decode": a step of batch 8 over a
+    512-token prefill; "prefill": 8 prompts of 512) spends its time with
+    `params` (int8 or bf16 weights): the host enqueue against the device
+    timeline over 3 calls (CUDA events), `torch.profiler` over 2 (launches,
+    device busy, idle share, top kernels), and, for int8, the dequantization
+    chain of one call (every `QTensor.to` it made, replayed alone, timed with
+    CUDA events) beside its bytes' bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm as LM
+
+    ids = torch.from_numpy(np.random.default_rng(16).integers(0, cfg.vocab_size,
+                                                              (8, 520))).cuda()
+    out: dict = {}
+    with torch.no_grad():
+        if what == "decode":
+            _, caches = LM.lm_prefill(params, cfg, ids[:, :512], max_len=520)
+            pos = iter(range(512, 520))
+
+            def call():
+                nonlocal caches
+                t = next(pos)
+                _, caches = model.decode_step(params, ids[:, t:t + 1], caches, t)
+        else:
+            def call():
+                LM.lm_prefill(params, cfg, ids[:, :512], max_len=520)
+
+        calls = recorded_dequants(call)        # also the warm-up
+        call()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(3):
+            call()
+        out["host_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        out["timeline_ms"] = start.elapsed_time(end) / 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.perf_counter() - t0) / 2 * 1e3
+    launches, kernels, busy_ms = device_summary(prof.key_averages())
+    out["launches"], out["busy_ms"] = launches / 2, busy_ms / 2
+    print(f"codeqwen {what} profile, {label} weights (warm, batch 8): host enqueue "
+          f"{out['host_ms']:.1f} ms a call, device timeline {out['timeline_ms']:.1f} ms (3 calls, "
+          f"no sync inside); under the profiler {out['launches']:.0f} kernel launches a call, "
+          f"device busy {out['busy_ms']:.1f} ms of a {out['wall_ms']:.1f} ms call (idle "
+          f"{1 - out['busy_ms'] / out['wall_ms']:.1%})")
+    for e in kernels[:6]:
+        print(f"codeqwen {what} profile, {label}: device {e.self_device_time_total / 1e3 / 2:.2f} "
+              f"ms a call ({e.count // 2} calls): {e.key[:90]}")
+    if calls:
+        elems = sum(qt.q.numel() for qt, _ in calls)
+        # q read (1 B), the fp32 product written and read (4 + 4 B), the
+        # result written in the activations' dtype (2 B).
+        nbytes = sum(qt.q.numel() * (1 + 4 + 4 + torch.empty(0, dtype=dt).element_size())
+                     for qt, dt in calls)
+
+        def replay():
+            for qt, dt in calls:
+                qt.to(dt)
+
+        out["dequant_ms"] = cuda_ms(torch, replay, reps=5, inner=2)
+        out["dequant_bound_ms"] = nbytes / PEAK_BYTES_S * 1e3
+        print(f"codeqwen {what} profile, {label}: the dequantization chain of one call, "
+              f"{len(calls)} QTensor.to calls over {elems / 1e9:.3f} G int8 elements, replayed "
+              f"alone: {out['dequant_ms']:.3f} ms of device time against its bytes' bound "
+              f"{out['dequant_bound_ms']:.3f} ms ({nbytes / 1e9:.1f} GB: int8 read, fp32 "
+              f"written and read, bf16 written; {out['dequant_bound_ms'] / out['dequant_ms']:.1%}"
+              f" of it); {out['dequant_ms'] / out['timeline_ms']:.1%} of the call's device "
+              f"timeline")
+    return out
+
+
+def phase_codeqwen_cross_check(torch, np, cfg) -> None:
+    """codeqwen1.5-7b at full width cut to 2 layers, one set of fp32 weights
+    made on the card and copied to the host CPU: quantized on each, `q` and
+    `scale` equal bit for bit; then the int8 model's prefill logits (2
+    prompts of 128; the flash kernel on the card, the plain version on the
+    host) and 8 decode steps, held to CROSS_TOL in fp32 activations, bf16
+    printed."""
+    from repro_torch import tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models import make_model
+    from repro_torch.models.quant import quantize_params
+
+    small = dataclasses.replace(cfg, num_layers=2)
+    model = make_model(small)
+    card = model.init(2, device="cuda")
+    host = tree.map_leaves(lambda t: t.cpu(), card)
+    t0 = time.perf_counter()
+    q_card, n_card = quantize_params(card)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_host, n_host = quantize_params(host)
+    t_host = time.perf_counter() - t0
+    del card
+    pairs = list(zip(tree.flatten(q_card), tree.flatten(q_host)))
+    equal = sum(same_bits(torch, a, b) for a, b in pairs)
+    print(f"codeqwen quantization, card vs host cpu ({small.num_layers} layers at full width, "
+          f"{model.param_count() / 1e9:.3f} B parameters): {n_card} / {n_host} tensors "
+          f"quantized; {equal} of {len(pairs)} leaves (q, scale and the unquantized) equal bit "
+          f"for bit; card {t_card:.2f} s, host cpu {t_host:.2f} s")
+    if n_card != n_host or equal != len(pairs):
+        fail("codeqwen: quantization on the card differs from the host CPU's")
+
+    rng = np.random.default_rng(17)
+    ids = torch.from_numpy(rng.integers(0, small.vocab_size, (2, 136)))
+    v = small.vocab_size
+
+    def run(params, device):
+        x = ids.to(device)
+        before = fa.launches
+        with torch.no_grad():
+            logits, caches = LM.lm_prefill(params, small, x[:, :128], max_len=136)
+            got = [logits[:, :v]]
+            for t in range(128, 136):
+                logits, caches = LM.lm_decode_step(params, small, x[:, t:t + 1], caches, t)
+                got.append(logits[:, :v])
+        return torch.stack(got, dim=1).float().cpu(), fa.launches - before
+
+    for dtype in ("bfloat16", "float32"):
+        L.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            t0 = time.perf_counter()
+            a, launches = run(q_card, "cuda")
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b, _ = run(q_host, "cpu")
+            t_host = time.perf_counter() - t0
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        held = dtype == "float32"
+        err = (a - b).abs()
+        ok = bool(torch.isfinite(a).all()) and bool((err <= CROSS_TOL + CROSS_TOL * b.abs()).all())
+        print(f"codeqwen int8 cross-check {dtype} activations, card vs host cpu (2 x 128-token "
+              f"prefill, 8 decode steps): max|diff| prefill logits {err[:, 0].max().item():.3e}, "
+              f"decode logits {err[:, 1:].max().item():.3e}"
+              f"{f' (tol {CROSS_TOL})' if held else ' (printed only)'}; argmax agrees on "
+              f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.2%} of 18 positions; "
+              f"{launches} flash launches (want {small.num_layers}); card {t_card:.2f} s, host "
+              f"cpu {t_host:.2f} s")
+        if launches != small.num_layers:
+            fail(f"codeqwen cross-check: {launches} flash launches, want {small.num_layers}")
+        if held and not ok:
+            fail("codeqwen int8: the card disagrees with the host CPU in fp32 activations")
+    del q_card, q_host, host
+
+
+def phase_codeqwen_int8_vs_bf16(torch, np, cfg, model) -> None:
+    """Full-depth codeqwen1.5-7b on the card, one set of weights quantized
+    and not (a bf16 copy): the logits of a 64-token prefill and 8 decode
+    steps (2 prompts, the bf16 model's greedy tokens fed to both) held to
+    the reference's limit, max |diff| / max |logit| < QUANT_RATIO_TOL; then
+    the profiles of a warm decode step and a warm prefill with each."""
+    from repro_torch import tree
+    from repro_torch.models import lm as LM
+    from repro_torch.models.quant import quantize_params
+
+    params = model.init(1, device="cuda")
+    q_params, _ = quantize_params(params)
+    bf16 = tree.map_leaves(lambda t: t.to(torch.bfloat16), params)
+    del params
+    torch.cuda.synchronize()
+    print(f"codeqwen int8 vs bf16: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+          f"with both trees on the card")
+    ids = torch.from_numpy(np.random.default_rng(18).integers(0, cfg.vocab_size, (2, 72))).cuda()
+    v = cfg.vocab_size
+    ratios, agree = [], []
+
+    def record(lb, lq):
+        a, b = lb[:, :v].float(), lq[:, :v].float()
+        ratios.append(((a - b).abs().max() / (a.abs().max() + 1e-6)).item())
+        agree.append((a.argmax(-1) == b.argmax(-1)).float().mean().item())
+        return a.argmax(-1, keepdim=True)
+
+    with torch.no_grad():
+        lb, cb = LM.lm_prefill(bf16, cfg, ids[:, :64], max_len=72)
+        lq, cq = LM.lm_prefill(q_params, cfg, ids[:, :64], max_len=72)
+        for t in range(64, 72):
+            tok = record(lb, lq)
+            lb, cb = LM.lm_decode_step(bf16, cfg, tok, cb, t)
+            lq, cq = LM.lm_decode_step(q_params, cfg, tok, cq, t)
+        record(lb, lq)
+    del cb, cq
+    worst = max(ratios)
+    print(f"codeqwen int8 vs bf16 weights, full depth (2 x 64-token prefill, 8 decode steps): "
+          f"max|diff| / max|logit| worst {worst:.4f} (limit {QUANT_RATIO_TOL}, "
+          f"tests/test_quant.py), per call {', '.join(f'{r:.4f}' for r in ratios)}; greedy "
+          f"tokens agree on {statistics.mean(agree):.2%}")
+    if not (math.isfinite(worst) and worst < QUANT_RATIO_TOL):
+        fail(f"codeqwen: int8 logits drift {worst:.4f} of the logit range from bf16's")
+
+    for what in ("decode", "prefill"):
+        q = quant_profile(torch, np, cfg, model, q_params, "int8", what)
+        b = quant_profile(torch, np, cfg, model, bf16, "bf16", what)
+        print(f"codeqwen {what} profile: int8 takes {q['timeline_ms']:.1f} ms of device timeline "
+              f"against bf16's {b['timeline_ms']:.1f} ms ({q['timeline_ms'] / b['timeline_ms']:.2f}"
+              f"x); device busy {q['busy_ms']:.1f} against {b['busy_ms']:.1f} ms, a difference "
+              f"of {q['busy_ms'] - b['busy_ms']:.1f} ms beside the dequantization chain's "
+              f"{q['dequant_ms']:.1f} ms")
+    del q_params, bf16
+
+
+def phase_codeqwen(torch, np, kernels: dict) -> int:
+    """int8 weight-only serving: full-width, full-depth codeqwen1.5-7b served
+    by the port's driver with --quant int8 (the kernels' counts set to 0 just
+    before and read just after: one causal flash launch per layer at head
+    dim 128, no scan; the reference's count of quantized tensors), then the
+    2-layer quantization and card-vs-host checks, the full-depth int8 vs
+    bf16 check and profiles, and examples/torch/serve_batched.py in a
+    process of its own. Returns the driver run's flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.io.stores import clear_store_cache
+    from repro_torch.launch import serve
+    from repro_torch.models import make_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config("codeqwen1.5-7b")
+    model = make_model(cfg)
+    print(f"{cfg.name}: {model.param_count():,} parameters ({model.param_count() * 4 / 1e9:.2f} "
+          f"GB in fp32), {cfg.num_layers} layers, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}; host MemAvailable {mem_available_gb():.1f} GB at the phase's start "
+          f"(the simulated store holds the fp32 publish in host memory)")
+    counted = []
+    real_quantize = serve.quantize_params
+
+    def counting(params):
+        out = real_quantize(params)
+        counted.append(out[1])
+        return out
+
+    log = RestoreLog()
+    ckpt_log = logging.getLogger("repro_torch.ckpt")
+    ckpt_log.setLevel(logging.INFO)
+    ckpt_log.addHandler(log)
+    serve.quantize_params = counting
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for mod in kernels.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = serve.main(CODEQWEN_ARGS)
+        torch.cuda.synchronize()
+    finally:
+        ckpt_log.removeHandler(log)
+        serve.quantize_params = real_quantize
+    wall = time.perf_counter() - t0
+    counts = {name: mod.launches for name, mod in kernels.items()}
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    clear_store_cache()      # the 32.8 GB publish lives in the cached store
+    gc.collect()
+    for sp in log.splits:
+        print(f"serve {cfg.name}: the driver's restore waited {sp['reader_s']:.3f} s on the "
+              f"reader and {sp['h2d_wait_s']:.3f} s on host-to-device copies (digest "
+              f"{sp['digest_s']:.3f} s, staging {sp['stage_s']:.3f} s, restore loop "
+              f"{sp['total_s']:.3f} s)")
+    want = {"flash_attention": cfg.num_layers, "ssd_scan": 0}
+    print(f"serve {cfg.name} (launch.serve {' '.join(CODEQWEN_ARGS)}): {wall:.1f} s with publish, "
+          f"restore and quantization; peak {peak:.2f} GB above the {base / 1e9:.2f} GB held "
+          f"before; {counted} tensors quantized (want [{CODEQWEN_QUANTIZED}]); kernel launches "
+          f"{counts} (want {want}); host MemAvailable {mem_available_gb():.1f} GB after")
+    if counts != want:
+        fail(f"{cfg.name}: kernel launches {counts}, want {want}")
+    if counted != [CODEQWEN_QUANTIZED]:
+        fail(f"{cfg.name}: quantized {counted} tensors, want [{CODEQWEN_QUANTIZED}]")
+    if out.shape != (8, 32) or out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail(f"{cfg.name}: generated ids of shape {out.shape} in [{out.min()}, {out.max()}], "
+             f"want (8, 32) in [0, {cfg.vocab_size})")
+    phase_codeqwen_cross_check(torch, np, cfg)
+    phase_codeqwen_int8_vs_bf16(torch, np, cfg, model)
+    run_example("serve_batched", "OK")
+    print(f"int8 serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts["flash_attention"]
+
+
 class RestoreLog(logging.Handler):
     """Keeps the split of wall time that each restore logs on its record
     (`restore_split`: reader, digest, staging and host-to-device wait)."""
@@ -1696,18 +2059,24 @@ def phase_usecases(torch, np) -> None:
         else:
             check_labels(torch, np, sa, card["large", usecase], host)
 
+    run_example("train_lm_e2e", "OK: ")
+    print(f"use-case phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_example(name: str, ok: str) -> None:
+    """examples/torch/<name>.py at its defaults in a process of its own: it
+    must exit 0 and print a line that starts with `ok`."""
     t0 = time.perf_counter()
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    res = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "torch",
-                                                       "train_lm_e2e.py")],
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "torch", f"{name}.py")],
                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
-    for line in res.stdout.strip().splitlines():
-        print(f"train_lm_e2e: {line}")
-    print(f"train_lm_e2e: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
-    if res.returncode != 0 or "\nOK: " not in "\n" + res.stdout:
+    lines = res.stdout.strip().splitlines()
+    for line in lines:
+        print(f"{name}: {line}")
+    print(f"{name}: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
+    if res.returncode != 0 or not any(line.startswith(ok) for line in lines):
         print(res.stderr[-3000:], file=sys.stderr)
-        fail("examples/torch/train_lm_e2e.py failed on the card")
-    print(f"use-case phase: {time.perf_counter() - t_phase:.1f} s")
+        fail(f"examples/torch/{name}.py failed on the card")
 
 
 def main() -> None:
@@ -1753,8 +2122,10 @@ def main() -> None:
         for line in ptxas_summary(os.path.join(ROOT, "build", f"{name}.ptxas.txt")):
             print(f"ptxas {name}: {line}")
     for dt in ("bfloat16", "float32"):
-        blocks, smem = fa.occupancy(getattr(torch, dt), 64)
-        print(f"occupancy flash {dt} D 64: {smem} bytes of shared memory, {blocks} CTAs per SM")
+        for d in (64, 128):
+            blocks, smem = fa.occupancy(getattr(torch, dt), d)
+            print(f"occupancy flash {dt} D {d}: {smem} bytes of shared memory, {blocks} CTAs "
+                  f"per SM")
         blocks, smem = ssd.occupancy(getattr(torch, dt), 64, 128, 256)
         print(f"occupancy ssd {dt} P 64, N 128, Q 256: {smem} bytes of shared memory, "
               f"{blocks} CTAs per SM")
@@ -1782,15 +2153,17 @@ def main() -> None:
 
     granite, jamba = phase_moe(torch, np, kernels)
     whisper = phase_whisper(torch, np, kernels)
+    codeqwen = phase_codeqwen(torch, np, kernels)
     # phase_serve fails unless granite's serve run launched no scan, and
-    # phase_whisper unless whisper's did not.
+    # phase_whisper and phase_codeqwen unless whisper's and codeqwen's did not.
     flash["launches_by_config"] = {"smollm-135m": flash["launches"],
                                    "granite-moe-3b-a800m": granite,
                                    "jamba-1.5-large-398b-reduced": jamba["flash_attention"],
-                                   "whisper-large-v3": whisper}
+                                   "whisper-large-v3": whisper,
+                                   "codeqwen1.5-7b-int8": codeqwen}
     scan["launches_by_config"] = {"mamba2-1.3b": scan["launches"], "granite-moe-3b-a800m": 0,
                                   "jamba-1.5-large-398b-reduced": jamba["ssd_scan"],
-                                  "whisper-large-v3": 0}
+                                  "whisper-large-v3": 0, "codeqwen1.5-7b-int8": 0}
 
     phase_train(torch, np, kernels)
     phase_usecases(torch, np)

@@ -11,11 +11,13 @@ states, an encoder-decoder's cross caches), on the GPU by default.
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --full \
       --batch 8 --prompt-len 1500 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch codeqwen1.5-7b --full \
+      --quant int8 --batch 8 --prompt-len 512 --gen 32
 
 For an encoder-decoder, --prompt-len is the encoder's frame count (stub
-frame embeddings) and the decoder's prompt is 8 tokens.
-
---quant int8 arrives in a later slice of the port.
+frame embeddings) and the decoder's prompt is 8 tokens. --quant int8
+quantizes the restored weights to int8 with fp32 scales (weight-only,
+`models/quant.py`); each product dequantizes its weight first.
 """
 
 from __future__ import annotations
@@ -26,12 +28,14 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.ckpt.manager import restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.io import IOPolicy, open_store
 from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 from repro_torch.models import make_model
+from repro_torch.models.quant import quantize_params
 
 
 def _sync(device: torch.device) -> None:
@@ -62,6 +66,8 @@ def main(argv: list[str] | None = None) -> np.ndarray:
                          "restarted replica cold-starts warm (zero store "
                          "GETs for blocks that survived on local disk)")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--quant", choices=["int8"], default=None,
+                    help="weight-only int8 serving: int8 weights, fp32 scales")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -77,9 +83,15 @@ def main(argv: list[str] | None = None) -> np.ndarray:
     params = model.init(args.seed, device=device)
     save_checkpoint(store, "weights", 0, params,
                     policy=IOPolicy(write_depth=4))
+    # The restore reads only the template's structure, so it gets `meta`
+    # stand-ins and the initialised tree is freed first: the card then holds
+    # one copy of the weights, not two (codeqwen1.5-7b's fp32 tree is
+    # 32.8 GB of an H100's 80).
+    template = tree.map_leaves(lambda t: torch.empty_like(t, device="meta"), params)
+    del params
     t0 = time.perf_counter()
     params, _ = restore_checkpoint(
-        store, "weights", params,
+        store, "weights", template,
         policy=IOPolicy(engine=args.restore_mode, depth=2,
                         max_depth=8 if args.autotune else None,
                         autotune=args.autotune,
@@ -89,6 +101,9 @@ def main(argv: list[str] | None = None) -> np.ndarray:
     )
     print(f"weight restore ({args.restore_mode}): {time.perf_counter() - t0:.2f}s"
           + (f" [cache: {args.cache_dir}]" if args.cache_dir else ""))
+    if args.quant == "int8":
+        params, n_q = quantize_params(params)
+        print(f"quantized {n_q} weight tensors to int8 (weight-only)")
 
     # --- batched prefill -------------------------------------------------------
     b, s = args.batch, args.prompt_len

@@ -89,9 +89,11 @@ def build_cross_caches(p: dict, cfg: ModelConfig, enc_hidden: torch.Tensor) -> L
     period into one buffer each, so the stack never exists twice."""
     cross = p["layers"]["block0"]["cross"]
     periods = cross["wk"].shape[0]
+    # Period views by `unbind`, which a quantized leaf answers too.
+    cols = {name: w.unbind(0) for name, w in cross.items()}
     k = v = None
     for i in range(periods):
-        kv = L.compute_kv({name: w[i] for name, w in cross.items()}, cfg, enc_hidden)
+        kv = L.compute_kv({name: col[i] for name, col in cols.items()}, cfg, enc_hidden)
         if k is None:
             k = kv.k.new_empty((periods, *kv.k.shape))
             v = kv.v.new_empty((periods, *kv.v.shape))

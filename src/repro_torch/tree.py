@@ -1,9 +1,11 @@
 """Trees of tensors in the order `jax.tree_util` gives them.
 
-A tree is nested dicts, tuples, NamedTuples and lists; anything else is a
-leaf. Dict keys are walked sorted at every level and sequence fields in
-order, so a port tree and the JAX package's tree of the same structure
-(a `TrainState(params, opt=AdamWState(step, m, v))` included) number
+A tree is nested dicts, tuples, NamedTuples, lists and quantized weights
+(`QTensor`, whose children are ``(q, scale)`` in that order, as the JAX
+package registers it); anything else is a leaf. Dict keys are walked
+sorted at every level and sequence fields in order, so a port tree and the
+JAX package's tree of the same structure (a `TrainState(params,
+opt=AdamWState(step, m, v))` or a quantized parameter tree included) number
 their leaves alike. `torch.utils._pytree` keeps dict insertion order and
 would number them differently.
 """
@@ -12,6 +14,8 @@ from __future__ import annotations
 
 from typing import Callable, Iterator
 
+from repro_torch.models.quant import QTensor
+
 
 def flatten(tree) -> list:
     """The leaves of `tree`, in `jax.tree_util`'s order."""
@@ -19,6 +23,8 @@ def flatten(tree) -> list:
         return [leaf for k in sorted(tree) for leaf in flatten(tree[k])]
     if isinstance(tree, (tuple, list)):
         return [leaf for child in tree for leaf in flatten(child)]
+    if isinstance(tree, QTensor):
+        return flatten(tree.q) + flatten(tree.scale)
     return [tree]
 
 
@@ -34,6 +40,9 @@ def unflatten(template, leaves: Iterator):
         if hasattr(template, "_fields"):
             return type(template)(*children)
         return type(template)(children)
+    if isinstance(template, QTensor):
+        q = unflatten(template.q, leaves)
+        return QTensor(q, unflatten(template.scale, leaves))
     return next(leaves)
 
 

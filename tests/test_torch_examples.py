@@ -52,3 +52,20 @@ def test_training_example_survives_its_crash():
     assert result.restarts == 1 and result.final_step == 40
     assert len(result.losses) in (40, 60)
     assert all(math.isfinite(x) for x in result.losses)
+
+
+def test_serve_batched_example_quantizes_and_drains_its_queue(capsys):
+    """The JAX package's serve_batched example on the port: reduced
+    smollm-135m restored through rolling prefetch, its 7 weight tensors
+    quantized to int8, and 10 requests of 8 or 16 tokens drained through
+    the wave-batched engine, every token id in range."""
+    results = _load("serve_batched").main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "int8-quantized 7 weight tensors" in out and out.rstrip().endswith("OK")
+    assert sorted(r.rid for r in results) == list(range(10))
+    from repro_torch.configs import get_config
+
+    vocab = get_config("smollm-135m").reduced().vocab_size
+    for r in results:
+        assert r.prompt_len in (8, 16) and 4 <= len(r.tokens) <= 9
+        assert r.tokens.min() >= 0 and r.tokens.max() < vocab
