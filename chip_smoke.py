@@ -108,7 +108,21 @@ Phases, each of which exits non-zero on a failed check:
      same bin and label for every row not within 1e-4 of a bin edge, of
      the threshold or of a tie. Then examples/torch/train_lm_e2e.py at its
      defaults in a process of its own must exit 0 with its OK line;
-  5. a JSON line of the kernels' numbers, then the result line.
+  5. the mesh tooling (after 4), in a one-rank NCCL group: full-width
+     olmo-1b (16 layers, d 2048, 16 heads of 128, non-parametric
+     LayerNorm, random weights from a seed) placed by TRAIN_RULES on a
+     1 x 1 CUDA `DeviceMesh`, saved to a simulated store at 10 ms a request
+     and 2000 MB/s, restored through `ft.elastic.restore_resharded` onto a
+     DECODE_TP_RULES template (every leaf's placements the template's, its
+     logical array bit-equal), one wave of 8 prompts of 512 tokens and 32
+     decode steps served from the restored tree (16 flash launches, no
+     scan), olmo-1b cut to 2 layers on the card and on the host CPU in fp32
+     activations (prefill and decode logits, loss, gradients), flash timed
+     at the wave's shape (8, 16, 512, 128), a post-reshard snapshot at step
+     1 restored bit-equal; seconds, restore split and peak memory printed.
+     Then examples/torch/elastic_restore.py on the card and on 8 CPU ranks,
+     each in a process of its own, must exit 0 with its OK line;
+  6. a JSON line of the kernels' numbers, then the result line.
 
 Needs a CUDA device and the repository's src/ beside this file.
 """
@@ -182,6 +196,10 @@ FLASH_CASES = [
     (8, 32, 32, 512, 512, 128, True, "bfloat16"),
     (4, 32, 32, 128, 128, 128, True, "bfloat16"),
     (2, 32, 32, 128, 128, 128, True, "float32"),
+    # olmo-1b's serving wave (MHA, 16 heads of 128) and its fp32
+    # card-vs-host shape.
+    (8, 16, 16, 512, 512, 128, True, "bfloat16"),
+    (2, 16, 16, 128, 128, 128, True, "float32"),
 ]
 SLICE_SHAPE = (8, 9, 3, 512, 512, 64, True, "bfloat16")
 WAVE2_SHAPE = (4, 9, 3, 128, 128, 64, True, "bfloat16")
@@ -189,6 +207,7 @@ GRANITE_SHAPE = (8, 24, 8, 512, 512, 64, True, "bfloat16")
 WHISPER_SHAPE = (8, 20, 20, 1500, 1500, 64, False, "bfloat16")
 CODEQWEN_SHAPE = (8, 32, 32, 512, 512, 128, True, "bfloat16")
 CODEQWEN_WAVE2 = (4, 32, 32, 128, 128, 128, True, "bfloat16")
+OLMO_SHAPE = (8, 16, 16, 512, 512, 128, True, "bfloat16")
 SSD_CASES = [
     # (b, s, h, g, p, n, chunk, dtype): the JAX package's test sweep ...
     (1, 128, 4, 1, 32, 32, 32, "float32"),
@@ -252,6 +271,9 @@ CODEQWEN_ARGS = ["--arch", "codeqwen1.5-7b", "--full", "--quant", "int8", "--bat
                  "sims3://codeqwen?latency_ms=10&bw_mbps=2000", "--device", "cuda", "--seed", "0"]
 CODEQWEN_QUANTIZED = 10
 QUANT_RATIO_TOL = 0.35
+# The mesh phase: full-width olmo-1b's weights saved and restored through a
+# simulated store at whisper's and codeqwen's 10 ms a request and 2000 MB/s.
+MESH_URI = "sims3://mesh?latency_ms=10&bw_mbps=2000"
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
 # The flash kernel is also held to |out - ref| / |ref| over the whole output
 # (L2 norms). Over 1500 keys an output is about 0.04 in size, so the
@@ -2063,20 +2085,274 @@ def phase_usecases(torch, np) -> None:
     print(f"use-case phase: {time.perf_counter() - t_phase:.1f} s")
 
 
-def run_example(name: str, ok: str) -> None:
-    """examples/torch/<name>.py at its defaults in a process of its own: it
-    must exit 0 and print a line that starts with `ok`."""
+def run_example(name: str, ok: str, args: tuple = ()) -> None:
+    """examples/torch/<name>.py with `args` (its defaults) in a process of
+    its own: it must exit 0 and print a line that starts with `ok`."""
     t0 = time.perf_counter()
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    res = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "torch", f"{name}.py")],
-                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "torch", f"{name}.py"),
+                          *args], capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
     lines = res.stdout.strip().splitlines()
+    what = " ".join((name, *args))
     for line in lines:
-        print(f"{name}: {line}")
-    print(f"{name}: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
+        print(f"{what}: {line}")
+    print(f"{what}: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
     if res.returncode != 0 or not any(line.startswith(ok) for line in lines):
         print(res.stderr[-3000:], file=sys.stderr)
-        fail(f"examples/torch/{name}.py failed on the card")
+        fail(f"examples/torch/{name}.py {' '.join(args)} failed on the card")
+
+
+def lm_run(torch, cfg, params, ids) -> dict:
+    """A decoder-only model's outputs on `params`' device, on the host: the
+    last-position logits of `ids`' first half prefilled, the logits of 8
+    decode steps over the next 8 tokens, `lm_loss` of `ids` (each token's
+    label the next) and every leaf's gradient; the flash launches of the
+    forward passes."""
+    from repro_torch import tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm as LM
+
+    device = tree.flatten(params)[0].device
+    ids = ids.to(device)
+    half = ids.shape[1] // 2
+    before = fa.launches
+    out = {}
+    with torch.no_grad():
+        logits, caches = LM.lm_prefill(params, cfg, ids[:, :half], max_len=half + 8)
+        out["prefill logits"] = logits[:, :cfg.vocab_size].float().cpu()
+        steps = []
+        for t in range(half, half + 8):
+            logits, caches = LM.lm_decode_step(params, cfg, ids[:, t:t + 1], caches, t)
+            steps.append(logits[:, :cfg.vocab_size].float().cpu())
+        out["decode logits"] = torch.stack(steps, dim=1)
+        del caches
+    out["launches"] = fa.launches - before
+    live = tree.map_leaves(lambda t: t.detach().requires_grad_(True), params)
+    loss = LM.lm_loss(live, cfg, ids[:, :-1], ids[:, 1:], loss_chunk=64)
+    out["loss"] = float(loss.detach())
+    out["grads"] = [g.cpu() for g in torch.autograd.grad(loss, tree.flatten(live))]
+    return out
+
+
+def phase_olmo_cross_check(torch, np) -> None:
+    """Full-width olmo-1b cut to 2 layers, one set of weights made on the
+    card and copied to the host CPU; 2 prompts of 128 tokens: prefill logits
+    (the flash kernel on the card, the plain version on the host), 8 decode
+    steps, `lm_loss` and every leaf's gradient. Held to CROSS_TOL in fp32
+    activations, as whisper's; bf16 printed. Its non-parametric LayerNorm
+    runs on the card here first."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import make_model
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=2)
+    card = make_model(cfg).init(0, device="cuda")
+    host = tree.map_leaves(lambda t: t.cpu(), card)
+    rng = np.random.default_rng(17)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129)))
+    for dtype in ("bfloat16", "float32"):
+        L.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            got = lm_run(torch, cfg, card, ids)
+            want = lm_run(torch, cfg, host, ids)
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        held = dtype == "float32"
+        errs, ok = {}, True
+        for key in ("prefill logits", "decode logits"):
+            a, b = got[key], want[key]
+            errs[key] = (a - b).abs().max().item()
+            ok = ok and bool(torch.isfinite(a).all()) and bool(
+                ((a - b).abs() <= CROSS_TOL + CROSS_TOL * b.abs()).all())
+        rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        largest = max(g.norm() for g in want["grads"])
+        grad_err = max(float((a - b).norm() / torch.maximum(b.norm(), 1e-3 * largest))
+                       for a, b in zip(got["grads"], want["grads"]))
+        print(f"olmo cross-check {dtype} activations, card vs host cpu (2 layers, 2 x 128 "
+              f"tokens): max|diff| prefill logits {errs['prefill logits']:.3e}, 8 decode steps' "
+              f"logits {errs['decode logits']:.3e}; loss card {got['loss']!r}, host cpu "
+              f"{want['loss']!r}, relative diff {rel_loss:.3e}; worst leaf gradient relative L2 "
+              f"{grad_err:.3e}{f' (tol {CROSS_TOL})' if held else ' (printed only)'}; "
+              f"{got['launches']} flash launches (want {cfg.num_layers})")
+        if got["launches"] != cfg.num_layers:
+            fail(f"olmo cross-check: {got['launches']} flash launches, want {cfg.num_layers}")
+        if held and not (ok and math.isfinite(got["loss"]) and rel_loss <= CROSS_TOL
+                         and grad_err <= CROSS_TOL):
+            fail("olmo cross-check: the card disagrees with the host CPU in fp32 activations")
+    del card, host
+
+
+def same_tree(torch, want: list, got: list, what: str) -> None:
+    """`got`'s leaves are DTensors whose logical arrays equal `want`'s
+    tensors bit for bit (dtype and shape too)."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} leaves, want {len(want)}")
+    for i, (a, b) in enumerate(zip(want, got)):
+        full = b.full_tensor()
+        if not full.is_cuda or full.dtype != a.dtype or not torch.equal(full, a):
+            fail(f"{what}: leaf {i} is {full.dtype} {tuple(full.shape)} on {full.device}, "
+                 f"want {a.dtype} {tuple(a.shape)} on the card, bit-exact")
+
+
+def phase_mesh(torch, np, fa, kernels: dict) -> tuple[int, dict]:
+    """The mesh tooling on the card, in a one-rank NCCL group (destroyed at
+    the end): full-width olmo-1b placed by TRAIN_RULES on a 1 x 1 CUDA mesh,
+    saved through a simulated store, restored by `restore_resharded` onto a
+    DECODE_TP_RULES template (placements and bits checked), one wave of 8 x
+    512 served from the restored tree (the kernels' counts set to 0 just
+    before and read just after: 16 flash launches, no scan), the 2-layer
+    card-vs-host check, flash timed at the wave's shape, a post-reshard
+    snapshot at step 1 restored again, then examples/torch/elastic_restore.py
+    on the card and on 8 CPU ranks. Returns the wave's flash launches and
+    the flash timing at its shape."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.ckpt import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.ft.elastic import reshard_params, restore_resharded, snapshot_resharded
+    from repro_torch.io import IOPolicy, open_store
+    from repro_torch.io.stores import clear_store_cache
+    from repro_torch.launch.mesh import make_debug_mesh, mesh_host_shard
+    from repro_torch.models import make_model
+    from repro_torch.models.spec import param_shardings
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.sharding.rules import DECODE_TP_RULES, TRAIN_RULES, ShardingRules
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
+    log = RestoreLog()
+    ckpt_log = logging.getLogger("repro_torch.ckpt")
+    ckpt_log.setLevel(logging.INFO)
+    ckpt_log.addHandler(log)
+    try:
+        cfg = get_config("olmo-1b")
+        model = make_model(cfg)
+        spec = model.spec()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params = model.init(0, device=dev)
+        want = tree.flatten(params)
+        nbytes = sum(t.numel() * t.element_size() for t in want)
+        print(f"{cfg.name}: {model.param_count():,} parameters ({nbytes / 1e9:.3f} GB in fp32), "
+              f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads of "
+              f"{cfg.head_dim}, {len(want)} leaves; host MemAvailable {mem_available_gb():.1f} GB")
+
+        mesh = make_debug_mesh(1, 1)
+        rules_a = ShardingRules(mesh, dict(TRAIN_RULES))
+        rules_b = ShardingRules(mesh, dict(DECODE_TP_RULES))
+        placed = reshard_params(params, spec, rules_a)
+        store = open_store(MESH_URI)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(store, "olmo", 0, placed, policy=IOPolicy(write_depth=4))
+        save_s = time.perf_counter() - t0
+        print(f"mesh save: {save_s:.3f} s, {nbytes / 1e6:.1f} MB in {len(want)} leaves from "
+              f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} by TRAIN_RULES to {MESH_URI}")
+
+        template = model.abstract_params(rules_b)
+        host_id, num_hosts = mesh_host_shard()
+        n0 = len(log.splits)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, _ = restore_resharded(
+            store, "olmo", template, host_id=host_id, num_hosts=num_hosts, device=dev,
+            policy=IOPolicy(engine="rolling", depth=2, eviction_interval_s=0.2))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got, t_leaves = tree.flatten(restored), tree.flatten(template)
+        relaid = sum(a.placements != b.placements
+                     for a, b in zip(tree.flatten(placed), got))
+        for i, (g, t) in enumerate(zip(got, t_leaves)):
+            if g.placements != t.placements or g.device_mesh != mesh:
+                fail(f"mesh restore: leaf {i} placed {g.placements}, want {t.placements}")
+        same_tree(torch, want, got, "mesh restore")
+        if len(log.splits) != n0 + 1:
+            fail(f"mesh restore: logged {len(log.splits) - n0} restore records, want 1")
+        sp = log.splits[-1]
+        print(f"mesh restore (restore_resharded, shard {host_id}/{num_hosts}) onto "
+              f"DECODE_TP_RULES: {restore_s:.3f} s; placements equal the template's, "
+              f"{relaid} of {len(got)} leaves laid out anew, logical arrays bit-equal; waited "
+              f"{sp['reader_s']:.3f} s on the reader and {sp['h2d_wait_s']:.3f} s on "
+              f"host-to-device copies (digest {sp['digest_s']:.3f} s, staging "
+              f"{sp['stage_s']:.3f} s, restore loop {sp['total_s']:.3f} s)")
+        del placed
+
+        # One wave from the restored tree: on a 1 x 1 mesh each shard is
+        # the whole leaf.
+        local = tree.map_leaves(lambda t: t.to_local(), restored)
+        rng = np.random.default_rng(5)
+        warm = ServeEngine(model, local, max_batch=8, device=dev)
+        warm.submit(Request(rid=0, prompt=rng.integers(0, cfg.vocab_size, 64), max_new_tokens=2))
+        warm.run()
+        engine = ServeEngine(model, local, max_batch=8, device=dev)
+        for i in range(8):
+            engine.submit(Request(rid=i, max_new_tokens=33, prompt=rng.integers(
+                0, cfg.vocab_size, 512).astype(np.int32)))
+        torch.cuda.synchronize()
+        for mod in kernels.values():
+            mod.launches = 0
+        results = engine.run()
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in kernels.items()}
+        st = engine.stats
+        print(f"serve {cfg.name} from the restored tree: {st.requests} requests in {st.waves} "
+              f"wave, prefill {st.prefill_s:.4f} s ({st.prefill_tokens} tokens, "
+              f"{st.prefill_tokens / st.prefill_s:.1f} tok/s), {st.decode_steps} decode steps, "
+              f"decode {(st.generated_tokens - st.requests) / st.decode_s:.1f} tok/s; kernel "
+              f"launches {counts} (want flash_attention {cfg.num_layers}, ssd_scan 0); peak "
+              f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB so far")
+        if counts != {name: cfg.num_layers if name == "flash_attention" else 0
+                      for name in kernels}:
+            fail(f"{cfg.name}: kernel launches {counts}, want flash_attention "
+                 f"{cfg.num_layers}, every other 0")
+        if st.waves != 1 or st.decode_steps != 32 or len(results) != 8:
+            fail(f"{cfg.name}: {st.waves} waves, {st.decode_steps} decode steps, "
+                 f"{len(results)} results; want 1, 32, 8")
+        for r in results:
+            if len(r.tokens) != 33 or r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
+                fail(f"request {r.rid}: {len(r.tokens)} tokens, ids outside [0, vocab)")
+        del warm, engine, local
+
+        phase_olmo_cross_check(torch, np)
+        olmo_wave = flash_timing(torch, fa, OLMO_SHAPE, "olmo-1b's 512-token wave, D 128", seed=7)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snapshot_resharded(store, "olmo", 1, restored, param_shardings(spec, rules_b),
+                           policy=IOPolicy(write_depth=4))
+        snap_s = time.perf_counter() - t0
+        if latest_step(store, "olmo") != 1:
+            fail(f"mesh snapshot: latest step {latest_step(store, 'olmo')}, want 1")
+        del restored
+        t0 = time.perf_counter()
+        again, manifest = restore_checkpoint(store, "olmo", template, device=dev,
+                                             policy=IOPolicy(engine="rolling", depth=2,
+                                                             eviction_interval_s=0.2))
+        torch.cuda.synchronize()
+        again_s = time.perf_counter() - t0
+        if manifest["step"] != 1:
+            fail(f"mesh snapshot: restored step {manifest['step']}, want 1")
+        same_tree(torch, want, tree.flatten(again), "mesh snapshot restore")
+        print(f"mesh snapshot (snapshot_resharded) at step 1: {snap_s:.3f} s; latest_step 1; "
+              f"its restore {again_s:.3f} s, bit-equal; peak "
+              f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above the "
+              f"{base / 1e9:.2f} GB held before the phase")
+        del again, params, want
+    finally:
+        ckpt_log.removeHandler(log)
+        dist.destroy_process_group()
+    clear_store_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_example("elastic_restore", "OK", ("--device", "cuda"))
+    run_example("elastic_restore", "OK", ("--device", "cpu"))
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts["flash_attention"], olmo_wave
 
 
 def main() -> None:
@@ -2167,6 +2443,9 @@ def main() -> None:
 
     phase_train(torch, np, kernels)
     phase_usecases(torch, np)
+    olmo, flash["olmo_wave"] = phase_mesh(torch, np, fa, kernels)
+    flash["launches_by_config"]["olmo-1b"] = olmo
+    scan["launches_by_config"]["olmo-1b"] = 0    # phase_mesh fails unless it was 0
 
     rows = [flash, scan]
     for row in rows:

@@ -25,6 +25,11 @@ with checking and copying leaf k. On a CUDA device each leaf goes through
 a ring of pinned staging buffers and an asynchronous host-to-device copy
 on a side stream, so the copy of leaf k also overlaps the fetch and digest
 check of leaf k+1. `engine="sequential"` is the S3Fs-style baseline.
+
+Sharded trees: a `DTensor` leaf is saved as its logical array (the bytes
+of an unsharded save), and a template leaf that is a `DTensor` lays the
+restored leaf out on its mesh and placements, which is how a checkpoint
+restores onto a different topology (`repro_torch.ft.elastic`).
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.io import IOPolicy, PrefetchFS, open_store
 from repro_torch.io.integrity import block_digest, check_block
@@ -134,8 +141,34 @@ def save_checkpoint(
     ``policy`` carries the write knobs (``write_depth``, ``blocksize`` as
     part size, retries/hedging); `store` may be an `ObjectStore`, an
     already-open `PrefetchFS`, or a store URI.
+
+    A tree with `DTensor` leaves is a collective call on every rank of the
+    default process group: each rank gathers every leaf (``full_tensor``)
+    in flatten order before any byte is written, rank 0 alone writes, and
+    every rank waits for its commit and returns its manifest. The
+    reference saves from its one process, which holds every array.
     """
     leaves = _flatten(state)
+    if not any(isinstance(leaf, DTensor) for leaf in leaves):
+        return _write_checkpoint(store, prefix, step, leaves, extra, policy)
+    # full_tensor() is a collective: a gather inside the write pipeline,
+    # which only rank 0 runs, would deadlock.
+    leaves = [leaf.full_tensor() if isinstance(leaf, DTensor) else leaf for leaf in leaves]
+    box = [None]
+    try:
+        if dist.get_rank() == 0:
+            box[0] = _write_checkpoint(store, prefix, step, leaves, extra, policy)
+    finally:
+        # The barrier, also when rank 0 failed: the others then raise
+        # below instead of waiting for a commit that never comes.
+        dist.broadcast_object_list(box, src=0)
+    if box[0] is None:
+        raise RuntimeError(f"rank 0 failed to save step {step} under {prefix!r}")
+    return box[0]
+
+
+def _write_checkpoint(store, prefix: str, step: int, leaves: list, extra: dict | None,
+                      policy: IOPolicy | None) -> dict:
     own_fs = not isinstance(store, PrefetchFS)
     fs = PrefetchFS(store, policy=policy) if own_fs else store
     entries = []
@@ -307,6 +340,12 @@ def restore_checkpoint(
     leaf a new tensor on `device`. A CUDA device that cannot be reached
     raises; there is no CPU fallback.
 
+    A template leaf that is a `DTensor` (e.g. from
+    `repro_torch.models.spec.abstract_params` under sharding rules) gives
+    the restored leaf its mesh and placements: every rank reads the whole
+    stream, as JAX's one process does, and keeps its own shard, with no
+    collective.
+
     Leaf bytes stream through `PrefetchFS`; pass ``policy`` to select the
     reader engine and its knobs. ``mode``/``blocksize``/``prefetch_depth``
     are the deprecated pre-facade spelling and are folded into a policy
@@ -449,6 +488,9 @@ def restore_checkpoint(
                  "wait %.3fs)", step, len(out), sum(m.size for m in files) / (1 << 20),
                  device, split["total_s"], split["reader_s"], split["digest_s"],
                  split["stage_s"], split["h2d_wait_s"], extra={"restore_split": split})
+        for i, tmpl in enumerate(t_leaves):
+            if isinstance(tmpl, DTensor):
+                out[i] = _place(out[i], tmpl)
     finally:
         if warm_cache:
             # Release the lock; blocks stay on disk for the next —
@@ -457,6 +499,18 @@ def restore_checkpoint(
                 with contextlib.suppress(Exception):
                     t.close()
     return _unflatten(template, iter(out)), manifest
+
+
+def _place(full: torch.Tensor, template: DTensor) -> DTensor:
+    """`full` laid out as `template` is, this rank keeping its own shard (a
+    copy, so the whole array is freed)."""
+    placed = distribute_tensor(full, template.device_mesh, template.placements,
+                               src_data_rank=None)
+    local = placed.to_local()
+    if local.untyped_storage().nbytes() == local.numel() * local.element_size():
+        return placed
+    return DTensor.from_local(local.clone(), template.device_mesh, template.placements,
+                              shape=placed.shape, stride=placed.stride())
 
 
 def gc_checkpoints(store: ObjectStore | str, prefix: str,

@@ -27,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataCursor, LoaderConfig, PrefetchingDataLoader, synth_token_shard
 from repro_torch.data.loader import DeviceFeeder
 from repro_torch.io import IOPolicy, open_store
+from repro_torch.launch.mesh import mesh_host_shard
 from repro_torch.models import make_model
 from repro_torch.store import LinkModel, MemTier, SimS3Store
 from repro_torch.train import (
@@ -175,7 +176,15 @@ def main(argv: list[str] | None = None) -> TrainResult:
     resume = latest_step(ckpt_store, "ckpt")
     if resume is not None:
         t0 = time.perf_counter()
-        state, manifest = restore_checkpoint(ckpt_store, "ckpt", state, device=device)
+        # Multi-process mesh: each host prefetch-warms only its
+        # rendezvous-owned slice of the checkpoint stream (a peer://
+        # ckpt store serves the rest over the LAN). Single process:
+        # shard=None, the plain full restore.
+        host_id, num_hosts = mesh_host_shard()
+        state, manifest = restore_checkpoint(
+            ckpt_store, "ckpt", state, device=device,
+            shard=(host_id, num_hosts) if num_hosts > 1 else None,
+        )
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         restore_s = time.perf_counter() - t0

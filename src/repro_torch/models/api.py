@@ -23,7 +23,8 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.models.moe import moe_spec
-from repro_torch.models.spec import init_params, param_count
+from repro_torch.models.spec import abstract_like, abstract_params, init_params, param_count
+from repro_torch.sharding.rules import ShardingRules
 
 
 @dataclass(frozen=True)
@@ -38,6 +39,10 @@ class Model:
 
     def init(self, seed: int = 0, *, device="cuda", param_dtype=torch.float32) -> dict:
         return init_params(self.spec(), seed, device=device, param_dtype=param_dtype)
+
+    def abstract_params(self, rules: ShardingRules | None = None,
+                        param_dtype=torch.float32):
+        return abstract_params(self.spec(), rules, param_dtype)
 
     def param_count(self) -> int:
         return param_count(self.spec())
@@ -98,6 +103,13 @@ class Model:
             return ED.make_decode_caches(cfg, batch, seq_len, cross_len=seq_len,
                                          device=device, length=length)
         return LM.make_stack_cache(cfg, batch, seq_len, device=device, length=length)
+
+    def abstract_decode_caches(self, batch: int, seq_len: int,
+                               rules: ShardingRules | None):
+        """`make_decode_caches(filled=True)`'s tree as ``meta`` tensors
+        (sharded per `rules`), with nothing allocated."""
+        shapes = self.make_decode_caches(batch, seq_len, filled=True, device="meta")
+        return abstract_like(shapes, LM.stack_cache_axes(self.cfg), rules)
 
     def decode_inputs(self, batch: int, device="cuda"):
         """One-token decode inputs (zeros): token ids, or embeddings for a

@@ -24,7 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.spec import ParamSpec
+from repro_torch.models.spec import Ax, ParamSpec
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -303,6 +303,15 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         length=length,
+    )
+
+
+def cache_logical_axes() -> KVCache:
+    """Logical axes of a `KVCache`'s buffers (its host-side length has none)."""
+    return KVCache(
+        k=Ax(("batch", "kv_seq", None, None)),
+        v=Ax(("batch", "kv_seq", None, None)),
+        length=None,
     )
 
 

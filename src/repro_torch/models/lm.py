@@ -26,7 +26,7 @@ from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssd as S
-from repro_torch.models.spec import stacked
+from repro_torch.models.spec import Ax, stacked
 
 NEG_INF = -1e30
 
@@ -57,6 +57,18 @@ def block_spec(cfg: ModelConfig, bd: BlockDef) -> dict:
         spec["ffn"] = L.mlp_spec(cfg)
     elif bd.ffn == "moe":
         spec["ffn"] = M.moe_spec(cfg)
+    return spec
+
+
+def block_cache_spec(cfg: ModelConfig, bd: BlockDef) -> dict:
+    """Logical-axis tree describing this block's decode cache."""
+    spec: dict = {}
+    if bd.mixer == "attn":
+        spec["attn"] = L.cache_logical_axes()
+    else:
+        spec["mamba"] = S.mamba_cache_logical_axes()
+    if bd.cross_attn:
+        spec["cross"] = L.cache_logical_axes()
     return spec
 
 
@@ -191,6 +203,21 @@ def make_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
             for name, c in one.items()
         }
     return out
+
+
+def stack_cache_axes(cfg: ModelConfig) -> dict:
+    """Logical-axes tree (Ax leaves) structurally matching make_stack_cache,
+    a leading periods axis on every buffer; used to attach shardings to
+    abstract decode-state inputs."""
+    per = {f"block{i}": block_cache_spec(cfg, bd) for i, bd in enumerate(cfg.pattern)}
+
+    def add_periods(c):
+        return dataclasses.replace(c, **{
+            f.name: Ax((None, *getattr(c, f.name).axes)) for f in dataclasses.fields(c)
+            if isinstance(getattr(c, f.name), Ax)})
+
+    return {block: {name: add_periods(c) for name, c in caches.items()}
+            for block, caches in per.items()}
 
 
 def _num_periods(tree: dict) -> int | None:

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.spec import ParamSpec
+from repro_torch.models.spec import ParamSpec, abstract_tensor
 
 
 @dataclass
@@ -121,24 +121,22 @@ def quantize_params(params: dict) -> tuple[dict, int]:
 
 
 def abstract_quantized_params(spec_tree: dict, rules=None) -> dict:
-    """``meta`` stand-ins for a quantized parameter tree: int8 ``q`` and fp32
-    ``scale`` for a quantizable leaf, bf16 for every other, as the reference
-    builds its ``ShapeDtypeStruct``s. Its sharded form (`rules`) waits for
-    the port of the mesh tooling (``sharding/rules.py``)."""
-    if rules is not None:
-        raise NotImplementedError(
-            "sharding rules are not ported yet: they arrive with the mesh tooling "
-            "(sharding/rules.py); pass rules=None")
-
-    def meta(shape, dtype) -> torch.Tensor:
-        return torch.empty(shape, dtype=dtype, device="meta")
+    """No-allocation stand-ins for a quantized parameter tree (dry-run,
+    restore template): int8 ``q`` and fp32 ``scale`` for a quantizable
+    leaf, bf16 for every other, as the reference builds its
+    ``ShapeDtypeStruct``s; sharded per `rules` (`spec.abstract_tensor`),
+    a scale by the weight's axes with its collapsed ones unsharded."""
 
     def leaf(path: str, ps: ParamSpec):
+        shard = rules.sharding(ps.axes, ps.shape) if rules else None
         if _quantizable(path, len(ps.shape)):
             collapsed = _scale_axes(len(ps.shape))
             s_shape = tuple(1 if i in collapsed else d for i, d in enumerate(ps.shape))
-            return QTensor(q=meta(ps.shape, torch.int8), scale=meta(s_shape, torch.float32))
-        return meta(ps.shape, torch.bfloat16)
+            s_axes = tuple(None if i in collapsed else a for i, a in enumerate(ps.axes))
+            s_shard = rules.sharding(s_axes, s_shape) if rules else None
+            return QTensor(q=abstract_tensor(ps.shape, torch.int8, shard),
+                           scale=abstract_tensor(s_shape, torch.float32, s_shard))
+        return abstract_tensor(ps.shape, torch.bfloat16, shard)
 
     return _walk(spec_tree, "", leaf)
 

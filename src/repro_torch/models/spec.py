@@ -1,5 +1,7 @@
-"""Parameter specifications: one declarative tree drives parameter init and
-counting, with the JAX package's paths, shapes and logical axes.
+"""Parameter specifications: one declarative tree drives parameter init,
+abstract init (``meta`` tensors, and `DTensor`s over ``meta`` shards when
+sharded) for the no-allocation dry-run and restore templates, and sharding
+assignment, with the JAX package's paths, shapes and logical axes.
 
 Trees are nested dicts whose leaves are `ParamSpec` (a spec tree) or
 tensors (a parameter tree); a leaf's path is its keys joined by dots, as
@@ -8,12 +10,25 @@ in ``layers.block0.attn.wq``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import zlib
 from dataclasses import dataclass
 from typing import Callable, Iterator
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
+
+from repro_torch.sharding.rules import NamedSharding, ShardingRules
+
+
+@dataclass(frozen=True)
+class Ax:
+    """Leaf marker carrying logical sharding axes for a non-parameter tensor
+    (caches, activations) in a structure-matched axes tree. A plain tuple
+    cannot serve: tuples are tree nodes and would dissolve into leaves."""
+
+    axes: tuple
 
 
 @dataclass(frozen=True)
@@ -104,6 +119,67 @@ def init_params(spec_tree, seed: int, *, device, param_dtype=torch.float32):
         }
 
     return walk(spec_tree, "")
+
+
+def abstract_tensor(shape, dtype: torch.dtype,
+                    sharding: NamedSharding | None = None) -> torch.Tensor:
+    """A no-allocation stand-in of a tensor (the counterpart of
+    ``jax.ShapeDtypeStruct``): a ``meta`` tensor, or with a `sharding` a
+    `DTensor` of global `shape` over this rank's ``meta`` shard."""
+    if sharding is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    # Every rank's shard has one shape: the rules shard a dim only where
+    # it divides evenly.
+    local = list(shape)
+    for size, p in zip(sharding.mesh.shape, sharding.placements):
+        if isinstance(p, Shard):
+            if local[p.dim] % size:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not split into {size}")
+            local[p.dim] //= size
+    local = torch.empty(local, dtype=dtype, device="meta")
+    # The global shape and stride given: from_local would otherwise infer
+    # them, wrongly for replicated dims, or by a collective.
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def abstract_params(spec_tree, rules: ShardingRules | None = None,
+                    param_dtype=torch.float32):
+    """Abstract tensors with shardings — the dry-run's no-allocation
+    stand-in for real parameters, and a restore template."""
+
+    def leaf(s: ParamSpec):
+        dtype = s.dtype if s.dtype != torch.float32 else param_dtype
+        return abstract_tensor(s.shape, dtype, rules.sharding(s.axes, s.shape) if rules else None)
+
+    return tree_map(leaf, spec_tree)
+
+
+def param_shardings(spec_tree, rules: ShardingRules):
+    return tree_map(lambda s: rules.sharding(s.axes, s.shape), spec_tree)
+
+
+def abstract_like(shape_tree, axes_tree, rules: ShardingRules | None):
+    """Attach shardings (from an Ax tree) to a tree of ``meta`` tensors.
+    Dicts and dataclasses (`KVCache`, `MambaCache`) are walked field by
+    field; a leaf that is not a tensor (a cache's host-side length) is
+    kept as it is."""
+
+    def walk(x, ax):
+        if isinstance(x, dict):
+            return {k: walk(v, ax[k]) for k, v in x.items()}
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{f.name: walk(getattr(x, f.name), getattr(ax, f.name))
+                                             for f in dataclasses.fields(x)})
+        if not isinstance(x, torch.Tensor):
+            return x
+        sharding = None
+        if rules is not None and isinstance(ax, Ax):
+            sharding = rules.sharding(ax.axes, tuple(x.shape))
+        return abstract_tensor(tuple(x.shape), x.dtype, sharding)
+
+    return walk(shape_tree, axes_tree)
 
 
 def param_count(spec_tree) -> int:

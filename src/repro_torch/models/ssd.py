@@ -23,7 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import segsum, ssd_chunked
 from repro_torch.models import layers as L
-from repro_torch.models.spec import ParamSpec
+from repro_torch.models.spec import Ax, ParamSpec
 
 __all__ = ["segsum", "ssd_chunked", "ssd_decode_step", "causal_conv", "MambaCache",
            "mamba_spec", "make_mamba_cache", "mamba_block"]
@@ -81,6 +81,15 @@ class MambaCache:
     conv_b: torch.Tensor   # (B, K-1, G*N)
     conv_c: torch.Tensor   # (B, K-1, G*N)
     ssm: torch.Tensor      # (B, H, P, N) fp32
+
+
+def mamba_cache_logical_axes() -> MambaCache:
+    return MambaCache(
+        conv_x=Ax(("batch", None, "tp")),
+        conv_b=Ax(("batch", None, None)),
+        conv_c=Ax(("batch", None, None)),
+        ssm=Ax(("batch", "tp", None, None)),
+    )
 
 
 def mamba_spec(cfg: ModelConfig) -> dict:

@@ -1,0 +1,177 @@
+"""Logical-axis sharding rules with divisibility-aware fallback, on
+`torch.distributed`'s `DeviceMesh` and `DTensor`; the port of the JAX
+package's ``sharding/rules.py``.
+
+Model code annotates tensors with *logical* axis names ("batch", "tp",
+"fsdp", ...). Rules map each name to an ordered list of candidate mesh-axis
+tuples; resolution picks the first candidate whose axes all exist in the
+mesh and whose total size divides the tensor dimension, else leaves the
+dimension unsharded. This is what lets one model implementation serve
+every assigned architecture: smollm's 9 heads or whisper's 20 heads simply
+fall back to replicated attention while d_ff / vocab / experts still shard.
+
+`ShardingRules.spec` gives the reference's ``PartitionSpec`` as a plain
+tuple (``None``, an axis name, or a tuple of names per tensor dimension);
+`ShardingRules.sharding` turns it into one `Placement` per mesh dimension,
+the form `DTensor` takes, held with its mesh in a `NamedSharding` as JAX's
+is.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from dataclasses import dataclass, field
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
+
+
+# Candidate mesh-axis assignments per logical axis, in priority order.
+# ("pod", "data") composes the multi-pod and single-pod meshes: resolution
+# drops axes absent from the mesh, so the same table serves both.
+TRAIN_RULES: dict[str, tuple[tuple[str, ...], ...]] = {
+    "batch": (("pod", "data"),),        # activation batch
+    "fsdp": (("pod", "data"),),         # parameter FSDP dim
+    "tp": (("model",),),                # heads / d_ff / vocab columns
+    "expert": (("model",),),            # MoE expert dim
+    "residual": (("model",),),          # activation d_model (2D sharding)
+    # Attention q-head dim ("heads"): preferred internal sharding when the
+    # head count divides the tensor axis — zero intra-attention collectives
+    # (KV expands to q-heads via a shard-local gather). Falls back to
+    # KV-sequence sharding ("kv_seq") otherwise (9/20/24-head archs), which
+    # keeps score tensors distributed at the price of per-chunk partial-sum
+    # all-reduces. Both decisions are divisibility-resolved per arch.
+    "heads": (("model",),),
+    "kv_seq": (("model",),),
+    "seq": ((),),                       # sequence: unsharded by default
+}
+
+# Decode: batch may be tiny (long_500k has batch 1) and the KV cache is the
+# dominant tensor -> shard its sequence dim over the tensor axis
+# (flash-decoding-style partial softmax; GSPMD inserts the LSE collectives).
+DECODE_RULES: dict[str, tuple[tuple[str, ...], ...]] = {
+    **TRAIN_RULES,
+    "kv_seq": (("model",),),
+}
+
+# TP-only serving weights (int8 weight-only quantization, §Perf cell 3):
+# the FSDP dim replicates, eliminating per-step weight all-gathers; int8
+# makes the replicated-within-data layout fit HBM.
+DECODE_TP_RULES: dict[str, tuple[tuple[str, ...], ...]] = {
+    **DECODE_RULES,
+    "fsdp": ((),),
+}
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """How a tensor lies on `mesh`: one `Placement` per mesh dimension, the
+    form `DTensor` takes. The counterpart of
+    ``jax.sharding.NamedSharding``, which also carries its mesh."""
+
+    mesh: DeviceMesh
+    placements: tuple[Placement, ...]
+
+
+def placements_of(mesh: DeviceMesh, spec: tuple) -> NamedSharding:
+    """`spec` (a ``PartitionSpec`` as a tuple) as placements on `mesh`:
+    ``Shard(d)`` on every mesh dimension that tensor dimension `d` takes,
+    ``Replicate()`` elsewhere. A dimension over several mesh axes is split
+    over the first of them, then each piece over the next (JAX's order for
+    ``P(("pod", "data"))``, pod-major), which `DTensor` gives only when the
+    axes come in the mesh's own order."""
+    names = list(mesh.mesh_dim_names)
+    out: list = [Replicate()] * mesh.ndim
+    for d, part in enumerate(spec):
+        if part is None:
+            continue
+        axes = part if isinstance(part, tuple) else (part,)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"mesh axes {axes} of tensor dim {d} are not in the mesh's order "
+                             f"{tuple(names)}")
+        for m in dims:
+            out[m] = Shard(d)
+    return NamedSharding(mesh, tuple(out))
+
+
+@dataclass
+class ShardingRules:
+    mesh: DeviceMesh | None = None
+    table: dict[str, tuple[tuple[str, ...], ...]] = field(
+        default_factory=lambda: dict(TRAIN_RULES)
+    )
+
+    def _axis_size(self, name: str) -> int | None:
+        if self.mesh is None:
+            return None
+        return dict(zip(self.mesh.mesh_dim_names, self.mesh.shape)).get(name)
+
+    def resolve_dim(self, logical: str | None, dim: int) -> tuple[str, ...] | None:
+        """Mesh axes for one tensor dimension, or None (replicated)."""
+        if logical is None or self.mesh is None:
+            return None
+        for candidate in self.table.get(logical, ()):
+            axes = tuple(a for a in candidate if self._axis_size(a) is not None)
+            if not axes:
+                continue
+            total = math.prod(self._axis_size(a) for a in axes)  # type: ignore
+            if total > 0 and dim % total == 0:
+                return axes
+        return None
+
+    def spec(self, logical_axes: tuple, shape: tuple) -> tuple:
+        if len(logical_axes) != len(shape):
+            raise ValueError(f"axes {logical_axes} vs shape {shape}")
+        parts = []
+        used: set[str] = set()
+        for logical, dim in zip(logical_axes, shape):
+            axes = self.resolve_dim(logical, dim)
+            if axes is None or any(a in used for a in axes):
+                parts.append(None)
+            else:
+                used.update(axes)
+                parts.append(axes if len(axes) > 1 else axes[0])
+        return tuple(parts)
+
+    def sharding(self, logical_axes: tuple, shape: tuple) -> NamedSharding | None:
+        if self.mesh is None:
+            return None
+        return placements_of(self.mesh, self.spec(logical_axes, shape))
+
+
+# --------------------------------------------------------------------------- #
+# Ambient rules (so layer code can constrain without threading a mesh arg)
+# --------------------------------------------------------------------------- #
+_tls = threading.local()
+
+
+def current_rules() -> ShardingRules | None:
+    return getattr(_tls, "rules", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: ShardingRules | None):
+    prev = getattr(_tls, "rules", None)
+    _tls.rules = rules
+    try:
+        yield rules
+    finally:
+        _tls.rules = prev
+
+
+def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """Lay `x` out per the ambient rules: a `DTensor` is redistributed, a
+    plain tensor (the global value, the same on every rank) distributed
+    with no communication. Outside a mesh context (CPU smoke tests) it
+    returns `x` itself."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return x
+    sharding = rules.sharding(tuple(logical_axes), tuple(x.shape))
+    if isinstance(x, DTensor):
+        return x.redistribute(rules.mesh, sharding.placements)
+    return distribute_tensor(x, rules.mesh, sharding.placements, src_data_rank=None)

@@ -9,6 +9,7 @@ from repro_torch.train.optimizer import (
 from repro_torch.train.train_step import (
     StepConfig,
     TrainState,
+    abstract_train_state,
     build_train_step,
     init_train_state,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "schedule",
     "StepConfig",
     "TrainState",
+    "abstract_train_state",
     "build_train_step",
     "init_train_state",
 ]

@@ -13,10 +13,19 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree
 from repro_torch.models.api import Model
-from repro_torch.train.optimizer import AdamWConfig, AdamWState, apply_updates, init_state
+from repro_torch.models.spec import abstract_tensor
+from repro_torch.sharding.rules import NamedSharding
+from repro_torch.train.optimizer import (
+    AdamWConfig,
+    AdamWState,
+    _moment_dtype,
+    apply_updates,
+    init_state,
+)
 
 
 class TrainState(NamedTuple):
@@ -29,6 +38,27 @@ def init_train_state(model: Model, seed: int = 0, *, device="cuda",
                      opt_cfg: AdamWConfig | None = None) -> TrainState:
     params = model.init(seed, device=device, param_dtype=param_dtype)
     return TrainState(params=params, opt=init_state(params, opt_cfg))
+
+
+def abstract_train_state(model: Model, rules, param_dtype=torch.float32,
+                         opt_cfg: AdamWConfig | None = None) -> TrainState:
+    """The train state as abstract tensors (`models.spec.abstract_tensor`)
+    for the dry-run and restore templates, with no allocation: the
+    parameters sharded per `rules`, each moment like its parameter in the
+    moments' dtype, the step a 0-d int32."""
+    params = model.abstract_params(rules, param_dtype)
+    mdt = _moment_dtype(opt_cfg)
+
+    def like(p):
+        sharding = NamedSharding(p.device_mesh, p.placements) if isinstance(p, DTensor) else None
+        return abstract_tensor(tuple(p.shape), mdt, sharding)
+
+    opt = AdamWState(
+        step=abstract_tensor((), torch.int32),
+        m=tree.map_leaves(like, params),
+        v=tree.map_leaves(like, params),
+    )
+    return TrainState(params=params, opt=opt)
 
 
 @dataclass(frozen=True)

@@ -69,3 +69,54 @@ def test_serve_batched_example_quantizes_and_drains_its_queue(capsys):
     for r in results:
         assert r.prompt_len in (8, 16) and 4 <= len(r.tokens) <= 9
         assert r.tokens.min() >= 0 and r.tokens.max() < vocab
+
+
+def _checkpoint_steps(path: str) -> list[tuple]:
+    """The example's checkpoint calls in source order, each with its
+    constant arguments (the prefix and the step), a restore counted alike
+    whether it goes through `restore_checkpoint` or `restore_resharded`."""
+    import ast
+
+    names = {"save_checkpoint": "save", "restore_checkpoint": "restore",
+             "restore_resharded": "restore", "snapshot_resharded": "snapshot",
+             "latest_step": "latest"}
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    calls = [node for node in ast.walk(tree) if isinstance(node, ast.Call)
+             and getattr(node.func, "id", None) in names]
+    calls.sort(key=lambda node: (node.lineno, node.col_offset))
+    return [(names[c.func.id], *(a.value for a in c.args if isinstance(a, ast.Constant)))
+            for c in calls]
+
+
+def _sections(path: str) -> list[str]:
+    with open(path) as f:
+        heads = [ln.strip() for ln in f if ln.strip().startswith("# --- ")]
+    return [re.sub(r"[:\s-]*(\d+ x \d+)?\s*-*$", "", h) for h in heads]
+
+
+def test_elastic_restore_keeps_the_references_steps():
+    """The port's example goes through the JAX package's sections in order,
+    and saves, restores, snapshots and reads the latest step of the same
+    checkpoint prefix and steps."""
+    ref = os.path.join(EXAMPLES, "elastic_restore.py")
+    port = os.path.join(EXAMPLES, "torch", "elastic_restore.py")
+    assert _sections(port) == _sections(ref) and len(_sections(ref)) == 4
+    assert _checkpoint_steps(port) == _checkpoint_steps(ref) == [
+        ("save", "elastic", 0), ("restore", "elastic"), ("snapshot", "elastic", 1),
+        ("latest", "elastic")]
+
+
+def test_elastic_restore_runs_on_eight_cpu_ranks():
+    """`--device cpu`: 8 gloo ranks, (4, 2) to (2, 4), every rank joined,
+    and rank 0's report ending in OK."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    res = subprocess.run([sys.executable, os.path.join(EXAMPLES, "torch", "elastic_restore.py"),
+                          "--device", "cpu"], capture_output=True, text=True, env=env, cwd=REPO,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[0] == "saved on mesh {'data': 4, 'model': 2} (8 cpu ranks)"
+    assert lines[1].startswith("restored onto mesh {'data': 2, 'model': 4} by TRAIN_RULES: "
+                               "values identical")
+    assert lines[-1] == "OK: elastic restore verified; post-reshard snapshot committed"

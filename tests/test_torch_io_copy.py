@@ -45,6 +45,10 @@ COPIED = [
     "peer/protocol.py", "peer/client.py", "peer/group.py", "peer/server.py",
     "peer/tier.py", "peer/store.py", "peer/sim.py", "peer/__init__.py",
     "io/fs.py", "io/stores.py",
+    # The fault-tolerance package's exports: restarts and elastic resharding.
+    "ft/__init__.py",
+    # The sharding package's exports.
+    "sharding/__init__.py",
 ]
 
 # Modules that differ from the reference, why, and what checks them instead.
@@ -57,8 +61,9 @@ DIFFERENT = {
     "data/loader.py": "torch DeviceFeeder",
     # RestartManager restores onto its `device` (tests/test_torch_restart.py).
     "ft/restart.py": "restore device",
-    # ft/elastic.py (resharding) is part of the sharding slice.
-    "ft/__init__.py": "no elastic",
+    # Resharding on torch.distributed's DTensor: a sharding is a mesh and its
+    # placements (tests/test_torch_elastic.py).
+    "ft/elastic.py": "torch DTensor",
 }
 
 
@@ -88,15 +93,12 @@ def test_listed_modules_differ_from_reference(rel):
 
 
 def test_every_copied_module_is_accounted_for():
-    """No module of the copied packages is left out of both lists, and the
-    module left for a later slice (ft/elastic.py) is absent."""
+    """No module of the copied packages is left out of both lists."""
     listed = set(COPIED) | set(DIFFERENT)
     for pkg in ("io", "core", "store", "ckpt", "data", "ft", "peer"):
         for name in os.listdir(os.path.join(PORT, pkg)):
             if name.endswith(".py"):
                 assert f"{pkg}/{name}" in listed, f"{pkg}/{name}"
-    for later in ("ft/elastic.py",):
-        assert not os.path.exists(os.path.join(PORT, later)), later
 
 
 def _definitions(source: str) -> dict[str, str]:

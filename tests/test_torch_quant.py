@@ -36,6 +36,7 @@ from repro.models import lm as JLM
 from repro.models import make_model as jax_make_model
 from repro.models import quant as JQ
 from repro.models import ssd as JS
+from repro.sharding import rules as JR
 from repro_torch import tree
 from repro_torch.bridge import params_from_numpy
 from repro_torch.ckpt import restore_checkpoint, save_checkpoint
@@ -367,9 +368,37 @@ def test_abstract_tree_matches_the_concrete_tree_and_jax():
 
 
 def test_abstract_tree_with_rules_waits_for_the_mesh_tooling():
-    spec = make_model(get_config("smollm-135m").reduced()).spec()
-    with pytest.raises(NotImplementedError, match="sharding"):
-        abstract_quantized_params(spec, rules=object())
+    """The mesh tooling has come: rules without a mesh give the unsharded
+    tree, and rules over a (2, 2) mesh (a ``fake`` process group, no data
+    moved) shard it as the reference does. tests/test_torch_sharding.py
+    holds every config at full size against the reference."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.rules import DECODE_TP_RULES, ShardingRules
+
+    name = "smollm-135m"
+    spec = make_model(get_config(name).reduced()).spec()
+    plain = tree.flatten(abstract_quantized_params(spec))
+    no_mesh = tree.flatten(abstract_quantized_params(spec, ShardingRules(None)))
+    assert [(t.shape, t.dtype, type(t)) for t in plain] == \
+        [(t.shape, t.dtype, type(t)) for t in no_mesh]
+    devs = np.array(jax.devices()[:1] * 4).reshape(2, 2)
+    jrules = JR.ShardingRules(jax.sharding.Mesh(devs, ("data", "model")),
+                              dict(JR.DECODE_TP_RULES))
+    want = jax.tree_util.tree_leaves(JQ.abstract_quantized_params(
+        jax_make_model(jax_get_config(name).reduced()).spec(), jrules))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        rules = ShardingRules(make_debug_mesh(2, 2, device_type="cpu"), dict(DECODE_TP_RULES))
+        got = tree.flatten(abstract_quantized_params(spec, rules))
+    finally:
+        dist.destroy_process_group()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and _dtype_name(g) == _dtype_name(w)
+        assert tuple(g.to_local().shape) == w.sharding.shard_shape(w.shape)
 
 
 def _uri(tag: str) -> str:
