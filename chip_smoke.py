@@ -122,7 +122,26 @@ Phases, each of which exits non-zero on a failed check:
      1 restored bit-equal; seconds, restore split and peak memory printed.
      Then examples/torch/elastic_restore.py on the card and on 8 CPU ranks,
      each in a process of its own, must exit 0 with its OK line;
-  6. a JSON line of the kernels' numbers, then the result line.
+  6. the sharded forward (after 5), in a one-rank NCCL group of its own
+     on a 1 x 1 CUDA mesh: full-width olmo-1b in fp32 activations,
+     `Model.loss` on 2 x 512 tokens and every leaf's gradient through the
+     `DTensor` path under TRAIN_RULES (every `constrain` active) against
+     the plain path on the same weights, then under DECODE_RULES a
+     prefill of 8 x 512 and 8 decode steps, each held to 1e-4; a bf16
+     prefill of the same wave through the `DTensor` path, its 16 flash
+     launches through `local_map` counted (counts set to 0 just before)
+     and the first held to its plain version at the bf16 and relative L2
+     limits; mamba2-1.3b at full width cut to 2 blocks, a `DTensor`
+     prefill whose 2 scan launches go through `local_map`, the first held
+     to its plain version, and its logits to the plain path's; the
+     `DTensor` TrainState of reduced olmo-1b saved by
+     `CheckpointManager.maybe_save` and restored onto its mesh
+     bit-equal; and, each in a process of its own started at the phase's
+     start, `python -m repro_torch.launch.dryrun` for olmo-1b's
+     prefill_32k and decode_32k on the 16 x 16 mesh (a ``fake`` group of
+     256 ranks, nothing allocated), their report lines and seconds
+     printed;
+  7. a JSON line of the kernels' numbers, then the result line.
 
 Needs a CUDA device and the repository's src/ beside this file.
 """
@@ -274,6 +293,11 @@ QUANT_RATIO_TOL = 0.35
 # The mesh phase: full-width olmo-1b's weights saved and restored through a
 # simulated store at whisper's and codeqwen's 10 ms a request and 2000 MB/s.
 MESH_URI = "sims3://mesh?latency_ms=10&bw_mbps=2000"
+# The sharded-forward phase: the DTensor path against the plain path in fp32
+# activations (|a - b| <= tol * (1 + |b|); the loss relative; each leaf's
+# gradient as a relative L2 error), and the dry-run's cells.
+SHARDED_TOL = 1e-4
+DRYRUN_CELLS = ("prefill_32k", "decode_32k")
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
 # The flash kernel is also held to |out - ref| / |ref| over the whole output
 # (L2 norms). Over 1500 keys an output is about 0.04 in size, so the
@@ -2355,6 +2379,281 @@ def phase_mesh(torch, np, fa, kernels: dict) -> tuple[int, dict]:
     return counts["flash_attention"], olmo_wave
 
 
+def first_launch(mod, name: str):
+    """Wrap `mod.<name>` so that its first call's inputs (copies: a cache
+    passed in is written after the call) and output are kept; returns
+    (records, restore)."""
+    real = getattr(mod, name)
+    seen: list = []
+
+    def copy(x):
+        return x.clone() if hasattr(x, "clone") else x
+
+    def wrapper(*args, **kw):
+        if seen:
+            return real(*args, **kw)
+        kept = ([copy(a) for a in args], {k: copy(v) for k, v in kw.items()})
+        out = real(*args, **kw)
+        seen.append((*kept, out))
+        return out
+
+    setattr(mod, name, wrapper)
+    return seen, lambda: setattr(mod, name, real)
+
+
+def olmo_dtensor_run(torch, cfg, model, params, rules, ids, labels):
+    """`Model.loss` of (ids, labels), every leaf's gradient, then a prefill
+    of `ids` and 8 decode steps over the next tokens; under `rules` (a
+    mesh) the parameters are placed by them and the inputs split on
+    ``batch``, else plain. Returns logical tensors."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch import tree
+    from repro_torch.ft.elastic import reshard_params
+    from repro_torch.models import lm as LM
+    from repro_torch.sharding.rules import use_rules
+
+    def place(t):
+        if rules is None:
+            return t
+        sh = rules.sharding(("batch",) + (None,) * (t.ndim - 1), tuple(t.shape))
+        return distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None)
+
+    def full(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach().float().cpu()
+
+    if rules is not None:
+        params = reshard_params(params, model.spec(), rules)
+    out = {}
+    with use_rules(rules):
+        if labels is not None:
+            live = tree.map_leaves(lambda t: t.detach().requires_grad_(True), params)
+            loss = model.loss(live, dict(inputs=place(ids), labels=place(labels)))
+            out["loss"] = float(full(loss))
+            out["grads"] = [full(g) for g in torch.autograd.grad(loss, tree.flatten(live))]
+            del live, loss
+        else:
+            with torch.no_grad():
+                s = ids.shape[1] - 8
+                logits, caches = LM.lm_prefill(params, cfg, place(ids[:, :s]), max_len=s + 8)
+                out["prefill"] = full(logits)
+                steps = []
+                for t in range(s, s + 8):
+                    logits, caches = model.decode_step(params, place(ids[:, t:t + 1]), caches, t)
+                    steps.append(full(logits))
+                out["decode"] = torch.stack(steps, dim=1)
+                del caches
+    return out
+
+
+def close_to(torch, a, b, tol: float) -> tuple[float, bool]:
+    err = (a - b).abs()
+    return err.max().item(), bool(torch.isfinite(a).all()) and bool(
+        (err <= tol + tol * b.abs()).all())
+
+
+def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
+    """The sharded forward on the card (phase 6): see the module docstring.
+    Returns the flash and scan launches of its DTensor prefills."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch import tree
+    from repro_torch.ckpt import CheckpointManager, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.ft.elastic import reshard_params, reshard_tree
+    from repro_torch.io.stores import clear_store_cache
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models import make_model
+    from repro_torch.models.spec import param_shardings
+    from repro_torch.sharding.rules import DECODE_RULES, TRAIN_RULES, ShardingRules, use_rules
+    from repro_torch.store.local import MemStore
+    from repro_torch.train import abstract_train_state, init_train_state
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    dry = {cell: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b", "--shape", cell,
+         "--out", out_dir], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=ROOT)) for cell in DRYRUN_CELLS}
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
+    launches = {}
+    try:
+        mesh = make_debug_mesh(1, 1)
+        cfg = get_config("olmo-1b")
+        model = make_model(cfg)
+        params = model.init(0, device=dev)
+        rng = np.random.default_rng(23)
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 513))).to(dev)
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            t0 = time.perf_counter()
+            got = olmo_dtensor_run(torch, cfg, model, params,
+                                   ShardingRules(mesh, dict(TRAIN_RULES)), ids[:, :-1], ids[:, 1:])
+            want = olmo_dtensor_run(torch, cfg, model, params, None, ids[:, :-1], ids[:, 1:])
+            rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            largest = max(g.norm() for g in want["grads"])
+            grad_err = max(float((a - b).norm() / torch.maximum(b.norm(), 1e-3 * largest))
+                           for a, b in zip(got["grads"], want["grads"]))
+            grad_max = max(float((a - b).abs().max()) for a, b in zip(got["grads"], want["grads"]))
+            print(f"sharded olmo-1b loss, fp32, TRAIN_RULES on mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (2 x 512 tokens, "
+                  f"{len(got['grads'])} leaves): loss DTensor {got['loss']!r}, plain "
+                  f"{want['loss']!r}, relative diff {rel_loss:.3e}; gradients max|diff| "
+                  f"{grad_max:.3e}, worst leaf relative L2 {grad_err:.3e} (tol {SHARDED_TOL}); "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if not (rel_loss <= SHARDED_TOL and grad_err <= SHARDED_TOL):
+                fail("sharded loss: the DTensor path disagrees with the plain path")
+            del got, want
+
+            t0 = time.perf_counter()
+            wave = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 520))).to(dev)
+            decode_rules = ShardingRules(mesh, dict(DECODE_RULES))
+            got = olmo_dtensor_run(torch, cfg, model, params, decode_rules, wave, None)
+            want = olmo_dtensor_run(torch, cfg, model, params, None, wave, None)
+            errs = {k: close_to(torch, got[k], want[k], SHARDED_TOL) for k in ("prefill", "decode")}
+            print(f"sharded olmo-1b serving, fp32, DECODE_RULES (8 x 512 prefill, 8 decode "
+                  f"steps): max|diff| prefill logits {errs['prefill'][0]:.3e}, decode logits "
+                  f"{errs['decode'][0]:.3e} (tol {SHARDED_TOL}); "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if not all(ok for _, ok in errs.values()):
+                fail("sharded serving: the DTensor path disagrees with the plain path")
+            del got, want
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+
+        # bf16: the wave's prefill through the DTensor path; every layer's
+        # attention through flash on the local shard.
+        seen, restore = first_launch(fa, "flash_attention_cuda")
+        try:
+            placed = reshard_params(params, model.spec(), decode_rules)
+            prompt = distribute_tensor(wave[:, :512], mesh, decode_rules.sharding(
+                ("batch", None), (8, 512)).placements, src_data_rank=None)
+            torch.cuda.synchronize()
+            for mod in kernels.values():
+                mod.launches = 0
+            with use_rules(decode_rules), torch.no_grad():
+                logits, _ = LM.lm_prefill(placed, cfg, prompt)
+            torch.cuda.synchronize()
+            counts = {name: mod.launches for name, mod in kernels.items()}
+        finally:
+            restore()
+        (q, k, v), kw, o = seen[0]
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        err = (o.float() - ref.float()).abs()
+        rel = (err.norm() / ref.float().norm()).item()
+        tol = TOL["bfloat16"]
+        ok = bool((err <= tol + tol * ref.float().abs()).all()) and rel <= REL_TOL["bfloat16"]
+        print(f"sharded olmo-1b prefill, bf16, DECODE_RULES: kernel launches {counts} through "
+              f"local_map (want flash_attention {cfg.num_layers}, ssd_scan 0); the first at "
+              f"{tuple(q.shape)} {q.dtype} vs its plain version max|diff| "
+              f"{err.max().item():.3e} (tol {tol}), relative {rel:.3e} (tol "
+              f"{REL_TOL['bfloat16']}); logits {type(logits).__name__} finite "
+              f"{bool(torch.isfinite(logits.full_tensor()).all())}")
+        if counts != {"flash_attention": cfg.num_layers, "ssd_scan": 0} or not ok:
+            fail("sharded prefill: flash launches or its output are wrong")
+        launches["olmo-1b"] = counts
+        del placed, params, logits, seen, q, k, v, o, ref
+
+        # mamba2-1.3b at full width, 2 blocks: the scan through local_map.
+        mcfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2)
+        mmodel = make_model(mcfg)
+        mparams = mmodel.init(0, device=dev)
+        mprompt = torch.from_numpy(rng.integers(0, mcfg.vocab_size, (4, 512))).to(dev)
+        seen, restore = first_launch(ssd, "ssd_scan_cuda")
+        try:
+            mplaced = reshard_params(mparams, mmodel.spec(), decode_rules)
+            torch.cuda.synchronize()
+            for mod in kernels.values():
+                mod.launches = 0
+            with use_rules(decode_rules), torch.no_grad():
+                mlogits, _ = LM.lm_prefill(mplaced, mcfg, distribute_tensor(
+                    mprompt, mesh, decode_rules.sharding(("batch", None), (4, 512)).placements,
+                    src_data_rank=None))
+            torch.cuda.synchronize()
+            mcounts = {name: mod.launches for name, mod in kernels.items()}
+        finally:
+            restore()
+        with torch.no_grad():
+            plain_logits, _ = LM.lm_prefill(mparams, mcfg, mprompt)
+        args, kw, (y, h) = seen[0]
+        ry, rh = ssd.ssd_scan_plain(*args, **kw)
+        ey, oky = ssd_close(torch, y, ry, TOL["bfloat16"])
+        eh, okh = ssd_close(torch, h, rh, TOL["bfloat16"])
+        lerr = (mlogits.full_tensor().float() - plain_logits.float()).abs().max().item()
+        print(f"sharded mamba2-1.3b (2 blocks, d {mcfg.d_model}) prefill, bf16, DECODE_RULES: "
+              f"kernel launches {mcounts} through local_map (want ssd_scan {mcfg.num_layers}, "
+              f"flash_attention 0); the first scan at {tuple(args[0].shape)} vs its plain "
+              f"version max|diff| y {ey:.3e}, state {eh:.3e} (tol {TOL['bfloat16']}); logits "
+              f"DTensor vs plain path max|diff| {lerr:.3e} (both through the kernel)")
+        if mcounts != {"flash_attention": 0, "ssd_scan": mcfg.num_layers} or not (oky and okh):
+            fail("sharded mamba prefill: scan launches or its output are wrong")
+        launches["mamba2-1.3b-2-blocks"] = mcounts
+        del mparams, mplaced, mlogits, plain_logits, seen, args, y, h, ry, rh
+
+        # CheckpointManager.maybe_save of a DTensor TrainState.
+        small = make_model(get_config("olmo-1b").reduced())
+        rules = ShardingRules(mesh, dict(TRAIN_RULES))
+        state = init_train_state(small, 0, device=dev)
+        shard = param_shardings(small.spec(), rules)
+        state = type(state)(params=reshard_tree(state.params, shard),
+                            opt=type(state.opt)(step=state.opt.step,
+                                                m=reshard_tree(state.opt.m, shard),
+                                                v=reshard_tree(state.opt.v, shard)))
+        store = MemStore()
+        mgr = CheckpointManager(store, "sharded", interval_steps=1)
+        t0 = time.perf_counter()
+        mgr.maybe_save(1, state, force=True)
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        template = abstract_train_state(small, rules)
+        t0 = time.perf_counter()
+        back, manifest = restore_checkpoint(store, "sharded", template, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want_leaves, got_leaves = tree.flatten(state), tree.flatten(back)
+        same = sum(
+            (b.placements == a.placements if isinstance(a, DTensor) else True) and torch.equal(
+                (b.full_tensor() if isinstance(b, DTensor) else b).cpu(),
+                (a.full_tensor() if isinstance(a, DTensor) else a).cpu())
+            for a, b in zip(want_leaves, got_leaves))
+        print(f"sharded TrainState (reduced olmo-1b, {len(want_leaves)} leaves, "
+              f"{sum(isinstance(t, DTensor) for t in want_leaves)} DTensors): "
+              f"CheckpointManager.maybe_save + wait {save_s:.3f} s, restore onto the mesh "
+              f"{restore_s:.3f} s; {same} of {len(want_leaves)} leaves bit-equal with their "
+              f"placements; manifest step {manifest['step']}")
+        if same != len(want_leaves) or manifest["step"] != 1:
+            fail("sharded TrainState: the restore is not the saved state")
+        del state, back
+    finally:
+        dist.destroy_process_group()
+    clear_store_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for cell, (t0, proc) in dry.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(stderr[-3000:], file=sys.stderr)
+            fail(f"dry-run olmo-1b {cell} exited {proc.returncode}")
+        with open(os.path.join(out_dir, f"olmo-1b__{cell}__pod16x16.json")) as f:
+            rec = json.load(f)
+        line = stdout.strip().splitlines()[-1]
+        print(f"dry-run olmo-1b {cell} (process of its own, done {secs:.1f} s after the phase "
+              f"began; traced in {rec['lower_s']} s): {line.strip()}; "
+              f"{rec['flops_per_chip']:.4e} FLOP, {rec['bytes_per_chip']:.4e} B, "
+              f"{rec['coll_bytes_per_chip']:.4e} collective B a chip; H100 terms derived from "
+              f"published peaks")
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2446,6 +2745,10 @@ def main() -> None:
     olmo, flash["olmo_wave"] = phase_mesh(torch, np, fa, kernels)
     flash["launches_by_config"]["olmo-1b"] = olmo
     scan["launches_by_config"]["olmo-1b"] = 0    # phase_mesh fails unless it was 0
+    sharded = phase_sharded(torch, np, fa, ssd, kernels)
+    for name, counts in sharded.items():
+        flash["launches_by_config"][f"{name}-dtensor-local_map"] = counts["flash_attention"]
+        scan["launches_by_config"][f"{name}-dtensor-local_map"] = counts["ssd_scan"]
 
     rows = [flash, scan]
     for row in rows:

@@ -536,7 +536,9 @@ def gc_checkpoints(store: ObjectStore | str, prefix: str,
 class CheckpointManager:
     """Periodic async checkpointing for the train loop. `store` may be an
     `ObjectStore` or a registry URI; `policy` forwards write-behind knobs
-    to `save_checkpoint`."""
+    to `save_checkpoint`. A state with `DTensor` leaves is a collective
+    call of `maybe_save` on every rank: each gathers the logical arrays,
+    rank 0 uploads them."""
 
     store: ObjectStore | str
     prefix: str
@@ -554,11 +556,20 @@ class CheckpointManager:
         if not force and (step == 0 or step % self.interval_steps != 0):
             return False
         self.wait()
-        # Snapshot synchronously into host copies, upload in background —
-        # training continues (and may update its tensors in place) while
-        # bytes stream to the store.
+        # Snapshot synchronously into host copies of the logical arrays,
+        # upload in background — training continues (and may update its
+        # tensors in place) while bytes stream to the store. A DTensor leaf
+        # is gathered here, on the caller's thread (`full_tensor` is a
+        # collective every rank joins), as the reference's
+        # `jax.device_get`; then rank 0 alone uploads, with no collective
+        # left for the upload thread.
+        leaves = _flatten(state)
+        sharded = any(isinstance(leaf, DTensor) for leaf in leaves)
         snapshot = _unflatten(state, iter(
-            leaf.detach().to("cpu", copy=True) for leaf in _flatten(state)))
+            (leaf.full_tensor() if isinstance(leaf, DTensor) else leaf).detach().to(
+                "cpu", copy=True) for leaf in leaves))
+        if sharded and dist.get_rank() != 0:
+            return True
 
         def upload() -> None:
             try:

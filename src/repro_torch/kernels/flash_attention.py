@@ -20,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.sharding.rules import replicate_like
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -58,7 +59,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows, NEG_INF)
+        s = s.masked_fill(replicate_like(cols > rows, s), NEG_INF)
     return torch.matmul(torch.softmax(s, dim=-1), vf).to(q.dtype)
 
 

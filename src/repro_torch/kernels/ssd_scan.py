@@ -28,6 +28,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.sharding.rules import replicate_like
 
 HEAD_DIMS = (16, 32, 64, 128)    # P values compiled in csrc/ssd_scan.cu
 MAX_STATE = 128                  # N: at most this, and a multiple of 4
@@ -75,7 +76,7 @@ def segsum(x: torch.Tensor) -> torch.Tensor:
     t = x.shape[-1]
     cs = torch.cumsum(x, dim=-1)
     out = cs[..., :, None] - cs[..., None, :]
-    mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+    mask = replicate_like(torch.ones(t, t, dtype=torch.bool, device=x.device).tril(), x)
     return out.masked_fill(~mask, -torch.inf)
 
 
@@ -115,7 +116,7 @@ def ssd_chunked(
 
     # 3) Inter-chunk recurrence over chunk states.
     chunk_decay = torch.exp(a_cumsum[..., -1])    # (B, H, NC)
-    carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    carry = (x.new_zeros((bsz, h, p, n), dtype=torch.float32)
              if initial_state is None else initial_state.float())
     entering = []
     for c in range(nc):

@@ -9,7 +9,8 @@ goes through the flash kernel's non-causal path when no gradient is
 needed. The decoder's blocks add a cross-attention to the encoder states:
 in training to `enc_hidden` itself, at prefill and decode to read-only
 per-period caches of its k/v (`build_cross_caches`), which the plain
-attention path reads.
+attention path reads. Under a mesh each stack's input is laid out where
+the reference's `constrain` puts it, and the cross caches on ``kv_seq``.
 """
 
 from __future__ import annotations
@@ -17,10 +18,13 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
+from repro_torch.models.spec import placed_tensor
+from repro_torch.sharding.rules import NamedSharding, constrain, replicate_like, write_slice
 
 ENC_PATTERN = (BlockDef("attn", "dense"),)
 
@@ -48,14 +52,20 @@ def _add_sinusoid(x: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """x plus the positions offset .. offset + S - 1, the table rounded to
     x's dtype before the add, as in the reference."""
     s = x.shape[1]
-    n = max(4096, 1 << (offset + s - 1).bit_length())
-    return x + _position_table(n, x.shape[2], x.dtype, x.device)[offset:offset + s]
+    if x.device.type == "meta":
+        # A stand-in (the dry-run's trace): nothing to keep, and a kept
+        # table would belong to the trace that made it.
+        table = L.sinusoidal_positions(s, x.shape[2], offset).to(x.dtype).to("meta")
+    else:
+        n = max(4096, 1 << (offset + s - 1).bit_length())
+        table = _position_table(n, x.shape[2], x.dtype, x.device)[offset:offset + s]
+    return x + replicate_like(table, x)
 
 
 def encode(p: dict, cfg: ModelConfig, enc_inputs: torch.Tensor, *,
            q_chunk: int = 512, remat: bool = False) -> torch.Tensor:
     """enc_inputs: (B, S_enc, D) stub frame embeddings -> encoder states."""
-    x = _add_sinusoid(enc_inputs.to(L.COMPUTE_DTYPE))
+    x = constrain(_add_sinusoid(enc_inputs.to(L.COMPUTE_DTYPE)), "batch", None, "residual")
     x, _, _ = LM.stack_fwd(p["enc_layers"], cfg, x, start=0, causal=False,
                            q_chunk=q_chunk, remat=remat, pattern=ENC_PATTERN)
     return L.apply_norm(p["enc_final_norm"], cfg, x)
@@ -66,7 +76,8 @@ def decode_train(p: dict, cfg: ModelConfig, enc_hidden: torch.Tensor,
                  remat: bool = False) -> torch.Tensor:
     """Teacher-forced decoder over `dec_ids`, cross-attending to
     `enc_hidden`: the final-normed hidden states."""
-    x = _add_sinusoid(L.embed_tokens(p["embed"], cfg, dec_ids))
+    x = constrain(_add_sinusoid(L.embed_tokens(p["embed"], cfg, dec_ids)),
+                  "batch", None, "residual")
     x, _, _ = LM.stack_fwd(p["layers"], cfg, x, start=0, enc_hidden=enc_hidden,
                            causal=True, q_chunk=q_chunk, remat=remat)
     return L.apply_norm(p["final_norm"], cfg, x)
@@ -86,7 +97,8 @@ def build_cross_caches(p: dict, cfg: ModelConfig, enc_hidden: torch.Tensor) -> L
     """Per-period read-only cross-attention KV of the encoder states,
     stacked on a leading periods axis as `make_stack_cache` stacks caches:
     k/v (periods, B, S_enc, H_kv, D_h), `length` S_enc. Written period by
-    period into one buffer each, so the stack never exists twice."""
+    period into one buffer each, so the stack never exists twice; under a
+    mesh a period's k/v keep their ``kv_seq`` layout in the stack."""
     cross = p["layers"]["block0"]["cross"]
     periods = cross["wk"].shape[0]
     # Period views by `unbind`, which a quantized leaf answers too.
@@ -95,10 +107,20 @@ def build_cross_caches(p: dict, cfg: ModelConfig, enc_hidden: torch.Tensor) -> L
     for i in range(periods):
         kv = L.compute_kv({name: col[i] for name, col in cols.items()}, cfg, enc_hidden)
         if k is None:
-            k = kv.k.new_empty((periods, *kv.k.shape))
-            v = kv.v.new_empty((periods, *kv.v.shape))
-        k[i], v[i] = kv.k, kv.v
+            k, v = (placed_tensor((periods, *t.shape), t.dtype, _stacked_layout(t),
+                                  device=t.device) for t in (kv.k, kv.v))
+        write_slice(k, 0, i, kv.k.unsqueeze(0))
+        write_slice(v, 0, i, kv.v.unsqueeze(0))
     return L.KVCache(k=k, v=v, length=enc_hidden.shape[1])
+
+
+def _stacked_layout(t: torch.Tensor) -> NamedSharding | None:
+    """The layout of `t` (a `DTensor`) with a leading periods axis added."""
+    if not isinstance(t, DTensor):
+        return None
+    return NamedSharding(t.device_mesh, tuple(
+        Shard(p.dim % t.ndim + 1) if isinstance(p, Shard) else Replicate()
+        for p in t.placements))
 
 
 def _merge_cross(caches: dict, cross: L.KVCache) -> dict:
@@ -119,7 +141,8 @@ def encdec_prefill(p: dict, cfg: ModelConfig, enc_inputs: torch.Tensor,
     enc_hidden = encode(p, cfg, enc_inputs, q_chunk=q_chunk)
     caches = _merge_cross(LM.make_stack_cache(cfg, b, max_len, device=dec_prompt.device),
                           build_cross_caches(p, cfg, enc_hidden))
-    x = _add_sinusoid(L.embed_tokens(p["embed"], cfg, dec_prompt))
+    x = constrain(_add_sinusoid(L.embed_tokens(p["embed"], cfg, dec_prompt)),
+                  "batch", None, "residual")
     x, caches, _ = LM.stack_fwd(p["layers"], cfg, x, start=0, caches=caches,
                                 update_cache=True, causal=True, q_chunk=q_chunk)
     h = L.apply_norm(p["final_norm"], cfg, x)
@@ -131,7 +154,8 @@ def encdec_decode_step(p: dict, cfg: ModelConfig, ids: torch.Tensor, caches: dic
     """One decoder token (B, 1) at `position` against the self and cross
     caches; the sinusoid is taken at that position. Returns (logits,
     caches)."""
-    x = _add_sinusoid(L.embed_tokens(p["embed"], cfg, ids), position)
+    x = constrain(_add_sinusoid(L.embed_tokens(p["embed"], cfg, ids), position),
+                  "batch", None, "residual")
     x, caches, _ = LM.stack_fwd(p["layers"], cfg, x, start=position, caches=caches,
                                 update_cache=True, causal=True, q_chunk=1)
     h = L.apply_norm(p["final_norm"], cfg, x)

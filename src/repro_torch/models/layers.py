@@ -11,6 +11,16 @@ encoder's non-causal pass) with no input that needs a gradient goes through
 every other case, training and cross-attention included, through the plain
 `_attn_core`, differentiable by autograd. The Mamba mixer is in
 ``models/ssd.py``.
+
+Under a mesh (`sharding.rules.use_rules` with a mesh) the same code runs on
+`DTensor`s and lays activations out where the reference's `constrain`
+calls do, in its order. `_attn_core` has the reference's two modes: k/v
+expanded to the q heads and sharded on ``heads`` when the q-head count
+divides that axis (training, the encoder, cross-attention from source
+states), else k/v and the scores sharded on ``kv_seq``, the softmax's max
+and sum reduced across it. A prefill goes through the flash kernel only
+where it needs no score tensor laid out: no head mode, and ``kv_seq`` over
+one rank at most, so every rank holds whole (batch, head) slices.
 """
 
 from __future__ import annotations
@@ -20,11 +30,22 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.spec import Ax, ParamSpec
+from repro_torch.sharding.rules import (
+    constrain,
+    current_rules,
+    merge_dims,
+    replicate_like,
+    split_dim,
+    under_current_rules,
+    write_slice,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -43,14 +64,21 @@ def norm_spec(cfg: ModelConfig, dim: int | None = None) -> dict:
     return spec
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim as its sum over the count (what `mean`
+    computes): over a dim sharded across ranks a partial sum, which
+    `DTensor` reduces in the backward pass too."""
+    return x.sum(dim=-1, keepdim=True) / x.shape[-1]
+
+
 def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     if cfg.norm_type == "rmsnorm":
-        var = xf.square().mean(dim=-1, keepdim=True)
+        var = _mean(xf.square())
         y = xf * torch.rsqrt(var + cfg.norm_eps)
-    else:  # layernorm
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    else:  # layernorm, the variance in two passes as the reference's
+        mean = _mean(xf)
+        var = _mean((xf - mean).square())
         y = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
     if p.get("scale") is not None:
         y = y * p["scale"].float()
@@ -70,8 +98,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
         * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
     )
     angles = positions[:, None].float() * freqs  # (S, half)
-    cos = torch.cos(angles)[None, :, None, :]
-    sin = torch.sin(angles)[None, :, None, :]
+    cos = replicate_like(torch.cos(angles)[None, :, None, :], x)
+    sin = replicate_like(torch.sin(angles)[None, :, None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     rx1 = x1 * cos - x2 * sin
     rx2 = x2 * cos + x1 * sin
@@ -106,8 +134,28 @@ def embedding_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids]. A `DTensor` table is gathered whole and each rank looks
+    up its own ids (laid out as the ids, the model dim whole); the table's
+    gradient is the sum of the ranks' partial ones. `DTensor`'s own
+    strategies for an index into a sharded table are not in every release
+    (torch 2.11 has none for the backward's ``index_add``)."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    ids = replicate_like(ids, table)
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in ids.placements]
+    out = [Shard(p.dim % ids.ndim) if isinstance(p, Shard) else Replicate()
+           for p in ids.placements]
+    return local_map(lambda t, i: t[i], out_placements=out,
+                     in_placements=(whole, ids.placements),
+                     in_grad_placements=(grad, ids.placements),
+                     device_mesh=mesh)(table.redistribute(mesh, whole), ids)
+
+
 def embed_tokens(p: dict, cfg: ModelConfig, ids: torch.Tensor) -> torch.Tensor:
-    x = p["table"][ids].to(COMPUTE_DTYPE)
+    x = _lookup(p["table"], ids).to(COMPUTE_DTYPE)
     return x * torch.tensor(cfg.embedding_multiplier, dtype=COMPUTE_DTYPE)
 
 
@@ -145,6 +193,98 @@ def attention_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
+def _head_shardable(hq: int) -> bool:
+    """True when the q-head count divides the tensor axis under the ambient
+    rules — selects the collective-free head-sharded attention path."""
+    rules = current_rules()
+    return (
+        rules is not None
+        and rules.mesh is not None
+        and rules.resolve_dim("heads", hq) is not None
+    )
+
+
+def _kv_seq_whole(sk: int) -> bool:
+    """True when k/v of `sk` positions laid out on ``kv_seq`` leave every
+    rank the whole sequence: no mesh, ``kv_seq`` unresolved, or resolved to
+    mesh axes of one rank in all."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return True
+    axes = rules.resolve_dim("kv_seq", sk)
+    return axes is None or math.prod(rules._axis_size(a) for a in axes) == 1
+
+
+def _batch_only(t: torch.Tensor) -> torch.Tensor:
+    """`t` split across ranks on its batch dim (dim 0) at most: a `DTensor`
+    split elsewhere is gathered and a partial sum reduced, as the kv_seq
+    mode's queries must be, every rank reading all heads against its k/v
+    positions."""
+    if not isinstance(t, DTensor):
+        return t
+    placements = [p if isinstance(p, Shard) and p.dim % t.ndim == 0 else Replicate()
+                  for p in t.placements]
+    if placements == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
+
+
+def _heads_split(o: torch.Tensor) -> torch.Tensor:
+    """The attention output (B, S, H, D) laid out as the ambient rules lay
+    out ``("batch", None, "heads", None)``, its partial sums reduced there.
+    Not a `constrain` (the reference has none here): it steers `DTensor`,
+    whose choice minimizes communication alone, from computing the output
+    projection whole on every rank of the tensor axis towards the
+    contraction split over heads that ``wo`` is sharded by."""
+    rules = current_rules()
+    if not isinstance(o, DTensor) or rules is None or rules.mesh is None:
+        return o
+    placements = rules.sharding(("batch", None, "heads", None), tuple(o.shape)).placements
+    return o.redistribute(o.device_mesh, placements)
+
+
+def _repeat_heads(t: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, S, H_kv, D) -> (B, S, H_kv * g, D), kv head j at heads j*g ..
+    j*g + g - 1."""
+    if g == 1:
+        return t
+    b, s, h, d = t.shape
+    return merge_dims(t.unsqueeze(3).expand(b, s, h, g, d), 2, 3)
+
+
+def _head_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over (B, H) batch dims. Two `DTensor`s laid out alike and split
+    on those dims at most (head mode: batch and heads) multiply rank by
+    rank, each its own (batch, head) slices: no collective, and no reshape
+    of two split dims into one, which `DTensor` cannot always express."""
+    if not isinstance(a, DTensor) or a.placements != b.placements or any(
+            p.is_partial() or (isinstance(p, Shard) and p.dim % a.ndim > 1)
+            for p in a.placements):
+        return a @ b
+    return local_map(torch.matmul, out_placements=list(a.placements),
+                     in_placements=(a.placements, b.placements),
+                     device_mesh=a.device_mesh)(a, b)
+
+
+def _positions_along(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """arange(t.shape[dim]), a `DTensor` split as `t` splits dim `dim` when
+    `t` is one: masks built from it meet the scores in their own layout."""
+    pos = torch.arange(t.shape[dim], device=t.device)
+    if not isinstance(t, DTensor):
+        return pos
+    placements = [Shard(0) if isinstance(p, Shard) and p.dim % t.ndim == dim else Replicate()
+                  for p in t.placements]
+    return distribute_tensor(pos, t.device_mesh, placements, src_data_rank=None)
+
+
+def _softmax(s: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim as the reference computes it, exp(s - max)
+    over its sum: on a dim sharded across ranks the max and the sum are
+    partial reductions, all-reduced, not a gather of the scores."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def _attn_core(
     q: torch.Tensor,        # (B, S_q, H_q, D_h)
     k: torch.Tensor,        # (B, S_k, H_kv, D_h)
@@ -154,50 +294,95 @@ def _attn_core(
     q_offset: int,          # global position of q[:, 0]
     kv_valid_len: int | None = None,   # mask kv positions >= this
     q_chunk: int = 512,
+    allow_head_shard: bool = True,
 ) -> torch.Tensor:
     """Plain attention in query chunks, masking by absolute position and by
-    the valid cache length; the JAX package's kv_seq path. Under autograd
-    each chunk is recomputed in the backward pass (as `jax.checkpoint` per
-    chunk does), so no chunk's fp32 probabilities are kept."""
+    the valid cache length. Under autograd each chunk is recomputed in the
+    backward pass (as `jax.checkpoint` per chunk does), so no chunk's fp32
+    probabilities are kept.
+
+    The reference's two sharding modes:
+      * head-sharded (`allow_head_shard` and the q heads divide the tensor
+        axis): k/v expanded to the q heads (head h reads kv head h // g),
+        laid out on ``heads`` with the query chunks and the scores; the
+        context in v's dtype (the reference's preferred_element_type);
+      * kv_seq-sharded otherwise: k/v on ``kv_seq``, the scores along it,
+        GQA groups kept (q as (B, H_kv, S_q, g, D_h)), every rank reading
+        all the query heads against its k/v positions."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = dh ** -0.5
-    kv_pos = torch.arange(sk, device=q.device)
-    kf = k.float()
+    head_mode = allow_head_shard and _head_shardable(hq)
 
-    def chunk_attn(q_c: torch.Tensor, offset: int) -> torch.Tensor:
-        c = q_c.shape[1]
-        mask = None
+    if head_mode:
+        # Head h reads kv head h // g: each kv head repeated g times in
+        # place (the reference's take by arange(hq) // g), as a broadcast,
+        # whose gradient is a sum rather than an indexed add.
+        k = constrain(_repeat_heads(k, g), "batch", None, "heads", None)
+        v = constrain(_repeat_heads(v, g), "batch", None, "heads", None)
+    else:
+        k = constrain(k, "batch", "kv_seq", None, None)
+        v = constrain(v, "batch", "kv_seq", None, None)
+        q = _batch_only(q)
+    # The contractions are matmuls over (B, heads) batch dims with the
+    # sequence dims last, the reference's einsums in an order that keeps
+    # every reshape of a sharded dim at a shard boundary; the work that
+    # does not depend on the chunk is done once, outside the chunk loop.
+    kt = k.float().permute(0, 2, 3, 1)        # (B, H, D, S_k)
+    vt = v.transpose(1, 2)                    # (B, H, S_k, D)
+    kv_pos = _positions_along(k, 1).unsqueeze(0)    # (1, S_k), laid out as k's positions
+    q_pos = replicate_like(q_offset + torch.arange(sq, device=q.device), kv_pos)
+    # Positions past the valid length are masked in every chunk.
+    invalid = None if kv_valid_len is None else kv_pos >= kv_valid_len
+    if head_mode:
+        qs = q                                # (B, S_q, H, D)
+    else:
+        qs = split_dim(q, 2, (hkv, g)).float().permute(0, 2, 1, 3, 4)   # (B, H_kv, S_q, g, D)
+
+    def chunk_attn(q_c: torch.Tensor, i: int) -> torch.Tensor:
+        """The context of queries i .. i + C - 1: (B, H, C, D) in head mode,
+        (B, H_kv, C * g, D) (chunk rows outer, groups inner) otherwise."""
+        c = q_c.shape[1] if head_mode else q_c.shape[2]
+        masked = invalid
         if causal:
-            q_pos = offset + torch.arange(c, device=q.device)
-            mask = kv_pos[None, :] <= q_pos[:, None]          # (C, S_k)
-        if kv_valid_len is not None:
-            valid = (kv_pos < kv_valid_len)[None, :]
-            mask = valid if mask is None else (mask & valid)
-        qg = q_c.reshape(b, c, hkv, g, dh).float()
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
-        if mask is not None:
-            s = s.masked_fill(~mask, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
-        return o.reshape(b, c, hq, dh).to(q.dtype)
+            later = kv_pos > q_pos[i:i + c].unsqueeze(1)      # (C, S_k)
+            masked = later if masked is None else (later | masked)
+        if head_mode:
+            qh = constrain(q_c, "batch", None, "heads", None)
+            s = _head_matmul(qh.float().transpose(1, 2), kt) * scale   # (B, H, C, S)
+            s = constrain(s, "batch", "heads", None, None)
+            if masked is not None:
+                s = s.masked_fill(masked, NEG_INF)
+            return _head_matmul(_softmax(s).to(v.dtype), vt)           # (B, H, C, D)
+        s = split_dim(merge_dims(q_c, 2, 3) @ kt, 2, (c, g)) * scale
+        s = constrain(s, "batch", None, None, None, "kv_seq")  # (B, H_kv, C, g, S)
+        if masked is not None:
+            s = s.masked_fill(masked.unsqueeze(1), NEG_INF)
+        return merge_dims(_softmax(s).to(v.dtype), 2, 3) @ vt   # (B, H_kv, C * g, D)
 
+    dim = 1 if head_mode else 2               # the query dim of `qs`
     if sq <= q_chunk:
-        return chunk_attn(q, q_offset)
-    remat = ops.needs_grad(q, k, v)
-    chunks = []
-    for i in range(0, sq, q_chunk):
-        args = (q[:, i:i + q_chunk], q_offset + i)
-        chunks.append(checkpoint(chunk_attn, *args, use_reentrant=False) if remat
-                      else chunk_attn(*args))
-    return torch.cat(chunks, dim=1)
+        out = chunk_attn(qs, 0)
+    else:
+        remat = ops.needs_grad(q, k, v)
+        chunks = []
+        for i in range(0, sq, q_chunk):
+            args = (qs.narrow(dim, i, min(q_chunk, sq - i)), i)
+            chunks.append(checkpoint(under_current_rules(chunk_attn), *args, use_reentrant=False)
+                          if remat
+                          else chunk_attn(*args))
+        out = torch.cat(chunks, dim=2)
+    if head_mode:
+        return out.transpose(1, 2).to(q.dtype)
+    out = split_dim(out, 2, (sq, g)).permute(0, 2, 1, 3, 4)             # (B, S_q, H_kv, g, D)
+    return merge_dims(out, 2, 3).to(q.dtype)
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
-    d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).view(*x.shape[:-1], h, k)
+    h, k = w.shape[1], w.shape[2]
+    return split_dim(x @ merge_dims(w.to(x.dtype), 1, 2), -1, (h, k))
 
 
 def attention(
@@ -237,8 +422,7 @@ def attention(
         k, v, kv_len = cache.k, cache.v, cache.length
         new_cache = cache
     else:
-        kv = compute_kv(p, cfg, kv_source if kv_source is not None else x)
-        k, v = kv.k, kv.v
+        k, v = _kv(p, cfg, kv_source if kv_source is not None else x)
         if rope:
             k = apply_rope(k, positions, cfg.rope_theta)
         if cache is not None:
@@ -246,8 +430,8 @@ def attention(
             # package's functional update, the caller's buffers change and
             # the returned cache shares them.
             end = cache.length + s
-            cache.k[:, cache.length:end] = k
-            cache.v[:, cache.length:end] = v
+            write_slice(cache.k, 1, cache.length, k)
+            write_slice(cache.v, 1, cache.length, v)
             new_cache = KVCache(cache.k, cache.v, end)
             if prefill:
                 kv_len = None     # the new k/v are the whole cache
@@ -261,26 +445,32 @@ def attention(
         q = apply_rope(q, positions, cfg.rope_theta)
 
     # The kernel is forward only: a call that needs gradients (training)
-    # takes the plain path, as the JAX package's training does.
-    if prefill and not ops.needs_grad(q, k, v):
+    # takes the plain path, as the JAX package's training does. Under a
+    # mesh it takes only layouts with whole (batch, head) slices on every
+    # rank: the kv_seq mode's k/v over one rank at most.
+    if (prefill and not ops.needs_grad(q, k, v) and _kv_seq_whole(k.shape[1])
+            and not (cache is None and _head_shardable(q.shape[2]))):
+        k = constrain(k, "batch", "kv_seq", None, None)
+        v = constrain(v, "batch", "kv_seq", None, None)
         # (B, S, H, D) -> (B, H, S, D) strided views; the kernel writes its
         # output in q's memory layout, so the transpose back is free.
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal).transpose(1, 2)
     else:
+        # Cache-backed paths (prefill/decode) keep the serving KV layout
+        # (kv_seq-sharded); the head-sharded mode serves training and
+        # encoder/cross attention computed from source activations.
         out = _attn_core(q, k, v, causal=causal and kv_source is None,
-                         q_offset=start, kv_valid_len=kv_len, q_chunk=q_chunk)
-    hq, dh = out.shape[2], out.shape[3]
-    y = out.reshape(b, s, hq * dh) @ p["wo"].to(x.dtype).reshape(hq * dh, -1)
+                         q_offset=start, kv_valid_len=kv_len, q_chunk=q_chunk,
+                         allow_head_shard=cache is None)
+    y = merge_dims(_heads_split(out), 2, 3) @ merge_dims(p["wo"].to(x.dtype), 0, 1)
     if "bo" in p:
         y = y + p["bo"].to(x.dtype)
+    y = constrain(y, "batch", None, "residual")
     return y, new_cache
 
 
-def compute_kv(p: dict, cfg: ModelConfig, src: torch.Tensor) -> KVCache:
-    """A read-only KV cache of `src` (encoder states, for cross-attention at
-    prefill and decode), in `src`'s dtype, which is the activations' dtype
-    as `make_cache`'s default is; its host `length` is the source length."""
+def _kv(p: dict, cfg: ModelConfig, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     k = _project(src, p["wk"])
     v = _project(src, p["wv"])
     if "bk" in p:
@@ -288,6 +478,17 @@ def compute_kv(p: dict, cfg: ModelConfig, src: torch.Tensor) -> KVCache:
         v = v + p["bv"].to(src.dtype)
     if cfg.qk_norm:
         k = apply_norm(p["k_norm"], cfg, k)
+    return k, v
+
+
+def compute_kv(p: dict, cfg: ModelConfig, src: torch.Tensor) -> KVCache:
+    """A read-only KV cache of `src` (encoder states, for cross-attention at
+    prefill and decode), in `src`'s dtype, which is the activations' dtype
+    as `make_cache`'s default is, laid out on ``kv_seq``; its host `length`
+    is the source length."""
+    k, v = _kv(p, cfg, src)
+    k = constrain(k, "batch", "kv_seq", None, None)
+    v = constrain(v, "batch", "kv_seq", None, None)
     return KVCache(k=k, v=v, length=src.shape[1])
 
 
@@ -346,7 +547,8 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = _act(cfg, gate) * h
     else:
         h = _act(cfg, h)
+    h = constrain(h, "batch", None, "tp")
     y = h @ p["w_down"].to(x.dtype)
     if "b_down" in p:
         y = y + p["b_down"].to(x.dtype)
-    return y
+    return constrain(y, "batch", None, "residual")

@@ -13,6 +13,12 @@ states) are stacked the same way and updated in place. MoE blocks return
 a Switch auxiliary loss, summed over the stack. The training loss is
 `lm_loss`: the hidden states, then `chunked_xent` over the output table,
 plus the weighted aux term for MoE configs.
+
+Under a mesh the hidden states are laid out where the reference's
+`constrain` puts them, the caches `lm_prefill` builds are sharded by
+`stack_cache_axes` (the layout of the decode cells' abstract caches), and
+the loss picks each label's logit by a masked sum over the vocabulary,
+which `DTensor` computes on vocabulary-sharded logits.
 """
 
 from __future__ import annotations
@@ -26,7 +32,13 @@ from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssd as S
-from repro_torch.models.spec import Ax, stacked
+from repro_torch.models.spec import Ax, abstract_like, stacked
+from repro_torch.sharding.rules import (
+    constrain,
+    current_rules,
+    replicate_like,
+    under_current_rules,
+)
 
 NEG_INF = -1e30
 
@@ -191,7 +203,20 @@ def make_stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
     """One cache per block of the pattern (a `KVCache` or a `MambaCache`, and
     a cross-attention block's `"cross"` `KVCache`), its buffers stacked over
     periods: k/v are (periods, B, max_len, H_kv, D_h), the Mamba ssm state
-    (periods, B, H, P, N)."""
+    (periods, B, H, P, N). Under a mesh, zeros laid out by
+    `stack_cache_axes`, each rank allocating only its shard (``meta``
+    stand-ins on the ``meta`` device)."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return _stack_cache(cfg, batch, max_len, device=device, cross_len=cross_len,
+                            length=length)
+    shapes = _stack_cache(cfg, batch, max_len, device="meta", cross_len=cross_len,
+                          length=length)
+    return abstract_like(shapes, stack_cache_axes(cfg), rules, device=device)
+
+
+def _stack_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                 cross_len: int, length: int) -> dict:
     out = {}
     for i, bd in enumerate(cfg.pattern):
         one = make_block_cache(cfg, bd, batch, max_len, device=device, cross_len=cross_len,
@@ -296,7 +321,8 @@ def stack_fwd(
 
     aux = x.new_zeros((), dtype=torch.float32)
     for idx in range(len(periods)):
-        x, aux = (checkpoint(period, x, aux, idx, use_reentrant=False) if remat
+        x, aux = (checkpoint(under_current_rules(period), x, aux, idx, use_reentrant=False)
+                  if remat
                   else period(x, aux, idx))
     if caches is None:
         return x, None, aux
@@ -333,6 +359,7 @@ def lm_hidden(
     """Final-normed hidden states, the updated caches and the stack's MoE aux
     loss. `start` is the global position of inputs[:, 0]."""
     x = lm_inputs_to_hidden(p, cfg, inputs)
+    x = constrain(x, "batch", None, "residual")
     x, new_caches, aux = stack_fwd(
         p["layers"], cfg, x,
         start=start,
@@ -351,7 +378,9 @@ def logits_from_hidden(p: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tens
     logits = (h.float() @ table.float().T) * cfg.logit_scale
     v_pad = cfg.padded_vocab()
     if v_pad != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = NEG_INF
+        invalid = replicate_like(torch.arange(v_pad, device=h.device) >= cfg.vocab_size,
+                                 logits)
+        logits = logits.masked_fill(invalid, NEG_INF)
     return logits
 
 
@@ -361,18 +390,22 @@ def chunked_xent(
 ) -> torch.Tensor:
     """Mean next-token cross-entropy without materializing (B, S, V) at
     once: fp32 logits one (B, chunk) slice at a time. labels < 0 are
-    masked out."""
+    masked out. Each label's logit is the sum over the vocabulary of the
+    logits where the vocabulary index equals the label: one non-zero term,
+    so the reference's gathered value exactly."""
     s = h.shape[1]
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {chunk}")
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
+    vocab = replicate_like(torch.arange(cfg.padded_vocab(), device=h.device), h)
     for i in range(0, s, chunk):
         l_c = labels[:, i:i + chunk]
         logits = logits_from_hidden(p, cfg, h[:, i:i + chunk])     # (B, C, V) fp32
         lse = torch.logsumexp(logits, dim=-1)
-        picked = logits.gather(-1, l_c.clamp_min(0)[..., None].long())[..., 0]
+        hit = vocab == l_c.clamp_min(0)[..., None]
+        picked = torch.where(hit, logits, 0.0).sum(dim=-1)
         valid = (l_c >= 0).float()
         loss_sum = loss_sum + ((lse - picked) * valid).sum()
         count = count + valid.sum()

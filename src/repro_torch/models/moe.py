@@ -8,9 +8,11 @@ slot that is dropped. The expert products are batched matmuls over the
 (padded) expert axis; there is no MoE kernel in the JAX package and none
 here.
 
-The reference's `constrain` calls are left out: they place tensors on a
-TPU mesh, and the port's mesh tooling (expert and tensor sharding) is not
-ported yet. On one card every tensor is whole.
+Under a mesh the slots, the expert hidden states and the output are laid
+out where the reference's `constrain` calls put them (experts on
+``expert``, the hidden dim on ``tp``, the batch rows on ``batch``); every
+gather and scatter indexes within a batch row, so a row's routing stays on
+the ranks that hold the row.
 
 Where a literal port would differ from the reference:
 - router logits are fp32 products of operands in the activations' dtype
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _act
 from repro_torch.models.spec import ParamSpec
+from repro_torch.sharding.rules import constrain, merge_dims, replicate_like, split_dim
 
 NEG_INF = -1e30
 
@@ -67,17 +70,21 @@ def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
 def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
     """The expert MLPs on their slots: xe (B, E, C, D) -> (B, E, C, D), one
     batched matmul per weight over the expert axis (rows of all batch rows
-    side by side), in the activations' dtype."""
+    side by side), in the activations' dtype. The hidden states are laid
+    out as (B, E, C, F) between the two products."""
     b, e, c, d = xe.shape
-    xs = xe.transpose(0, 1).reshape(e, b * c, d)
+    xs = merge_dims(xe.transpose(0, 1), 1, 2)
     h = torch.bmm(xs, p["w_up"].to(xe.dtype))
     if cfg.glu:
         gate = torch.bmm(xs, p["w_gate"].to(xe.dtype))
         h = _act(cfg, gate) * h
     else:
         h = _act(cfg, h)
+    f = h.shape[-1]
+    h = constrain(split_dim(h, 1, (b, c)).transpose(0, 1), "batch", "expert", None, "tp")
+    h = merge_dims(h.transpose(0, 1), 1, 2)
     ye = torch.bmm(h, p["w_down"].to(xe.dtype))
-    return ye.reshape(e, b, c, d).transpose(0, 1)
+    return split_dim(ye, 1, (b, c)).transpose(0, 1)
 
 
 def combine(yw: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
@@ -87,9 +94,10 @@ def combine(yw: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     ascending slot order, rounding to yw's dtype after each add: the
     reference's sequential scatter-add, bit for bit, with no atomics."""
     b, _, d = yw.shape
+    s, k = slots.shape[1], slots.shape[2]
     yw = torch.cat([yw, yw.new_zeros((b, 1, d))], dim=1)
-    rows = torch.arange(b, device=yw.device)[:, None, None]
-    picked = yw[rows, slots.sort(dim=-1).values]                     # (B, S, k, D)
+    order = merge_dims(slots.sort(dim=-1).values, 1, 2)[..., None].expand(b, s * k, d)
+    picked = split_dim(torch.gather(yw, 1, order), 1, (s, k))        # (B, S, k, D)
     y = picked[:, :, 0]
     for j in range(1, slots.shape[-1]):
         y = y + picked[:, :, j]
@@ -105,7 +113,7 @@ def route(p: dict, cfg: ModelConfig,
     logits = x.float() @ p["w_router"].to(x.dtype).float()        # (B, S, E)
     if e != cfg.moe_num_experts:
         # Padding experts (the reference's sharding alignment) never win.
-        pad = torch.arange(e, device=x.device) >= cfg.moe_num_experts
+        pad = replicate_like(torch.arange(e, device=x.device) >= cfg.moe_num_experts, logits)
         logits = logits.masked_fill(pad, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -126,33 +134,38 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch
     # Over the flattened (S·k) axis, k inner: within an expert the earlier
     # token takes the earlier slot, and tokens past capacity go to the trash
     # slot `n_slots`.
-    flat_e = expert_idx.reshape(b, s * k)
+    flat_e = merge_dims(expert_idx, 1, 2)
     onehot = F.one_hot(flat_e, e)                                    # (B, S*k, E)
     pos_in_e = (onehot.cumsum(dim=1) * onehot).sum(dim=-1) - 1
     keep = pos_in_e < cap
     slot = torch.where(keep, flat_e * cap + pos_in_e, n_slots)
-    tok = (torch.arange(s * k, device=x.device) // k).expand(b, s * k)
-    gate_flat = gate_vals.reshape(b, s * k) * keep
+    tok = replicate_like(torch.arange(s * k, device=x.device) // k, slot).expand(b, s * k)
+    gate_flat = merge_dims(gate_vals, 1, 2) * keep
 
     # Each slot's token (s, the zero row, for an empty slot) and gate. Only
     # the trash column receives duplicate indices, which makes `scatter`'s
     # choice among them nondeterministic on the card and its gradient
     # assume unique indices; both are harmless because that column is
     # sliced off (its gradient is 0).
-    slot_tok = torch.full((b, n_slots + 1), s, dtype=torch.long, device=x.device)
+    slot_tok = replicate_like(
+        torch.full((b, n_slots + 1), s, dtype=torch.long, device=x.device), slot)
     slot_tok = slot_tok.scatter(1, slot, tok)[:, :n_slots]
     slot_gate = x.new_zeros((b, n_slots + 1), dtype=torch.float32).scatter(1, slot, gate_flat)
 
     # --- expert computation -----------------------------------------------------
     xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    xe = xp[torch.arange(b, device=x.device)[:, None], slot_tok].reshape(b, e, cap, d)
-    ye = _experts(p, cfg, xe).reshape(b, n_slots, d)
+    xe = split_dim(torch.gather(xp, 1, slot_tok[..., None].expand(b, n_slots, d)), 1, (e, cap))
+    xe = constrain(xe, "batch", "expert", None, None)
+    ye = merge_dims(_experts(p, cfg, xe), 1, 2)
 
     # --- combine ----------------------------------------------------------------
-    y = combine(ye * slot_gate[:, :n_slots, None].to(ye.dtype), slot.reshape(b, s, k))
+    y = combine(ye * slot_gate[:, :n_slots, None].to(ye.dtype), split_dim(slot, 1, (s, k)))
+    y = constrain(y, "batch", None, "residual")
 
     # --- aux load-balancing loss (Switch-style) -------------------------------
-    frac_tokens = F.one_hot(expert_idx[..., 0], e).float().mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
+    # Means over the batch rows as sums over the count (what `mean`
+    # computes): a partial sum over rows sharded across ranks.
+    frac_tokens = F.one_hot(expert_idx[..., 0], e).float().sum(dim=(0, 1)) / (b * s)
+    frac_probs = probs.sum(dim=(0, 1)) / (b * s)
     aux = e * (frac_tokens * frac_probs).sum()
     return y, aux

@@ -121,13 +121,19 @@ def init_params(spec_tree, seed: int, *, device, param_dtype=torch.float32):
     return walk(spec_tree, "")
 
 
-def abstract_tensor(shape, dtype: torch.dtype,
-                    sharding: NamedSharding | None = None) -> torch.Tensor:
-    """A no-allocation stand-in of a tensor (the counterpart of
-    ``jax.ShapeDtypeStruct``): a ``meta`` tensor, or with a `sharding` a
-    `DTensor` of global `shape` over this rank's ``meta`` shard."""
+def placed_tensor(shape, dtype: torch.dtype, sharding: NamedSharding | None = None, *,
+                  device="meta") -> torch.Tensor:
+    """A tensor of global `shape` laid out by `sharding`: a ``meta`` tensor
+    (no allocation) on the ``meta`` device, zeros on any other; with a
+    `sharding`, a `DTensor` over this rank's shard of that kind, the whole
+    tensor never built."""
+    def make(size):
+        if torch.device(device).type == "meta":
+            return torch.empty(size, dtype=dtype, device="meta")
+        return torch.zeros(size, dtype=dtype, device=device)
+
     if sharding is None:
-        return torch.empty(shape, dtype=dtype, device="meta")
+        return make(shape)
     # Every rank's shard has one shape: the rules shard a dim only where
     # it divides evenly.
     local = list(shape)
@@ -136,12 +142,19 @@ def abstract_tensor(shape, dtype: torch.dtype,
             if local[p.dim] % size:
                 raise ValueError(f"dim {p.dim} of {tuple(shape)} does not split into {size}")
             local[p.dim] //= size
-    local = torch.empty(local, dtype=dtype, device="meta")
     # The global shape and stride given: from_local would otherwise infer
     # them, wrongly for replicated dims, or by a collective.
     stride = torch.empty(shape, device="meta").stride()
-    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+    return DTensor.from_local(make(local), sharding.mesh, sharding.placements,
                               shape=torch.Size(shape), stride=stride)
+
+
+def abstract_tensor(shape, dtype: torch.dtype,
+                    sharding: NamedSharding | None = None) -> torch.Tensor:
+    """A no-allocation stand-in of a tensor (the counterpart of
+    ``jax.ShapeDtypeStruct``): a ``meta`` tensor, or with a `sharding` a
+    `DTensor` of global `shape` over this rank's ``meta`` shard."""
+    return placed_tensor(shape, dtype, sharding)
 
 
 def abstract_params(spec_tree, rules: ShardingRules | None = None,
@@ -160,8 +173,9 @@ def param_shardings(spec_tree, rules: ShardingRules):
     return tree_map(lambda s: rules.sharding(s.axes, s.shape), spec_tree)
 
 
-def abstract_like(shape_tree, axes_tree, rules: ShardingRules | None):
-    """Attach shardings (from an Ax tree) to a tree of ``meta`` tensors.
+def abstract_like(shape_tree, axes_tree, rules: ShardingRules | None, *, device="meta"):
+    """Attach shardings (from an Ax tree) to a tree of ``meta`` tensors:
+    ``meta`` stand-ins, or on another `device` zeros (`placed_tensor`).
     Dicts and dataclasses (`KVCache`, `MambaCache`) are walked field by
     field; a leaf that is not a tensor (a cache's host-side length) is
     kept as it is."""
@@ -177,7 +191,7 @@ def abstract_like(shape_tree, axes_tree, rules: ShardingRules | None):
         sharding = None
         if rules is not None and isinstance(ax, Ax):
             sharding = rules.sharding(ax.axes, tuple(x.shape))
-        return abstract_tensor(tuple(x.shape), x.dtype, sharding)
+        return placed_tensor(tuple(x.shape), x.dtype, sharding, device=device)
 
     return walk(shape_tree, axes_tree)
 

@@ -10,6 +10,13 @@ with a cache) is the plain recurrence `ssd_decode_step`, as in the
 reference. Matmuls run in the activations' dtype (bf16) on fp32
 parameters cast at use; the scan, its state and the gated norm's
 statistics are fp32.
+
+Under a mesh the projections and the output are laid out where the
+reference's `constrain` calls put them, the conv's zero state takes its
+input's layout, and a cache's states are written in place in the layout
+they already have. The scan goes through `ops.ssd_scan` only when every
+rank holds whole sequences: the projections that feed the conv and the
+scan are laid out so.
 """
 
 from __future__ import annotations
@@ -18,12 +25,14 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import segsum, ssd_chunked
 from repro_torch.models import layers as L
-from repro_torch.models.spec import Ax, ParamSpec
+from repro_torch.models.spec import Ax, ParamSpec, placed_tensor
+from repro_torch.sharding.rules import NamedSharding, constrain, merge_dims, split_dim, write_slice
 
 __all__ = ["segsum", "ssd_chunked", "ssd_decode_step", "causal_conv", "MambaCache",
            "mamba_spec", "make_mamba_cache", "mamba_block"]
@@ -42,10 +51,37 @@ def ssd_decode_step(
     bh = b_t.float().repeat_interleave(rep, dim=1)       # (B, H, N)
     ch = c_t.float().repeat_interleave(rep, dim=1)
     decay = torch.exp(dt_a_t.float())                    # (B, H)
-    new_state = state * decay[..., None, None] + torch.einsum(
-        "bhp,bhn->bhpn", x_t.float(), bh)
-    y = torch.einsum("bhpn,bhn->bhp", new_state, ch)
+    # The outer product and the contraction over N as broadcast products
+    # and a sum: no reshape of the (B, H) dims, which a `DTensor` split on
+    # both could take only at a strided layout.
+    new_state = state * decay[..., None, None] + x_t.float()[..., None] * bh[:, :, None, :]
+    y = (new_state * ch[:, :, None, :]).sum(dim=-1)
     return y.to(x_t.dtype), new_state
+
+
+def _layout_of(x: torch.Tensor) -> NamedSharding | None:
+    """A `DTensor`'s mesh and placements, a partial sum's taken as
+    replicated (None for a plain tensor): the layout a tensor made beside
+    it takes."""
+    if not isinstance(x, DTensor):
+        return None
+    return NamedSharding(x.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                              for p in x.placements))
+
+
+def _seq_whole(t: torch.Tensor) -> torch.Tensor:
+    """A (B, S, ...) `DTensor` with its sequence whole on every rank and no
+    partial sum: the conv and the scan run along the sequence. Not a
+    `constrain` (the reference leaves B, C and dt to the partitioner):
+    `DTensor`, which weighs communication alone, may split the sequence of
+    a projection whose contraction dim is split on the batch's mesh axis."""
+    if not isinstance(t, DTensor):
+        return t
+    placements = [Replicate() if p.is_partial() or (isinstance(p, Shard) and p.dim % t.ndim == 1)
+                  else p for p in t.placements]
+    if placements == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, placements)
 
 
 # --------------------------------------------------------------------------- #
@@ -58,7 +94,8 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = N
     sums in another order, and in TF32 for fp32)."""
     k = w.shape[0]
     if state is None:
-        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        state = placed_tensor((x.shape[0], k - 1, x.shape[2]), x.dtype, _layout_of(x),
+                              device=x.device)
     xp = torch.cat([state, x], dim=1)                   # (B, S+K-1, C)
     s = x.shape[1]
     y = xp[:, 0:s] * w[0]
@@ -135,7 +172,7 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                    eps: float) -> torch.Tensor:
     # silu(z) is rounded to y's dtype before the product, as in the reference.
     yf = (y * F.silu(z.float()).to(y.dtype)).float()
-    var = yf.square().mean(dim=-1, keepdim=True)
+    var = L._mean(yf.square())
     return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
 
@@ -156,6 +193,9 @@ def mamba_block(
     bp = x @ p["w_b"].to(dt)
     cp = x @ p["w_c"].to(dt)
     dt_raw = x @ p["w_dt"].to(dt)
+    xs = constrain(xs, "batch", None, "tp")
+    z = constrain(z, "batch", None, "tp")
+    bp, cp, dt_raw = _seq_whole(bp), _seq_whole(cp), _seq_whole(dt_raw)
 
     conv_state = (cache.conv_x, cache.conv_b, cache.conv_c) if cache else (None,) * 3
     xs, st_x = causal_conv(xs, p["conv_x"].to(dt), conv_state[0])
@@ -167,10 +207,10 @@ def mamba_block(
     a = -torch.exp(p["a_log"].float())                           # (H,)
     dt_a = dt_val * a                                            # (B, S, H)
 
-    xh = xs.reshape(bsz, s, h, pdim)
+    xh = split_dim(xs, 2, (h, pdim))
     x_scaled = xh.float() * dt_val[..., None]                    # dt-discretized input
-    bg = bp.reshape(bsz, s, g, n)
-    cg = cp.reshape(bsz, s, g, n)
+    bg = split_dim(bp, 2, (g, n))
+    cg = split_dim(cp, 2, (g, n))
 
     if s == 1 and cache is not None:
         y_t, new_ssm = ssd_decode_step(
@@ -194,14 +234,14 @@ def mamba_block(
         y = y_full[:, :s]
 
     y = y + xh * p["d_skip"].to(dt)[None, None, :, None]
-    y = y.reshape(bsz, s, cfg.d_inner)
+    y = merge_dims(y, 2, 3)
     y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
-    out = y @ p["w_out"].to(dt)
+    out = constrain(y @ p["w_out"].to(dt), "batch", None, "residual")
 
     if cache is not None:
         for buf, new in ((cache.conv_x, st_x), (cache.conv_b, st_b),
                          (cache.conv_c, st_c), (cache.ssm, new_ssm)):
-            buf.copy_(new)
+            write_slice(buf, 0, 0, new)
         return out, cache
     if update_cache:
         return out, MambaCache(conv_x=st_x, conv_b=st_b, conv_c=st_c, ssm=new_ssm)

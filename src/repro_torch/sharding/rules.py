@@ -15,6 +15,14 @@ tuple (``None``, an axis name, or a tuple of names per tensor dimension);
 `ShardingRules.sharding` turns it into one `Placement` per mesh dimension,
 the form `DTensor` takes, held with its mesh in a `NamedSharding` as JAX's
 is.
+
+Under a mesh the model code runs on `DTensor`s, and two things XLA does
+for the reference are done here: a tensor the code builds beside a
+`DTensor` (a RoPE table, a mask, an index) joins its mesh, replicated
+(`replicate_like`), and a write of a slice into a buffer sharded along the
+written dim lands, rank by rank, on the part of the slice each rank holds
+(`write_slice`, the counterpart of ``dynamic_update_slice`` on a sharded
+operand).
 """
 
 from __future__ import annotations
@@ -161,6 +169,101 @@ def use_rules(rules: ShardingRules | None):
         yield rules
     finally:
         _tls.rules = prev
+
+
+def under_current_rules(fn):
+    """`fn` bound to the rules ambient now: the wrapper runs it under them
+    wherever it is called. The ambient rules are per thread, and autograd
+    runs a CUDA backward pass, where `torch.utils.checkpoint` recomputes a
+    segment, on a thread of its own."""
+    rules = current_rules()
+
+    def bound(*args, **kwargs):
+        with use_rules(rules):
+            return fn(*args, **kwargs)
+
+    return bound
+
+
+def replicate_like(t: torch.Tensor, partner: torch.Tensor) -> torch.Tensor:
+    """`t` (the same value on every rank) as a replicated `DTensor` on
+    `partner`'s mesh when `partner` is a `DTensor`, else `t` itself: the
+    tables and masks the model code builds from shapes join the operands
+    they meet, with no communication."""
+    if not isinstance(partner, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = partner.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def split_dim(t: torch.Tensor, dim: int, sizes: tuple[int, ...]) -> torch.Tensor:
+    """`t` with dim `dim` reshaped to `sizes`. A `DTensor` split on that
+    dim across a mesh dim whose size does not divide ``sizes[0]`` (3 kv
+    heads of 16 over 2 ranks) is first replicated there: `DTensor` splits a
+    sharded dim only at a shard boundary."""
+    if isinstance(t, DTensor):
+        mesh, d = t.device_mesh, dim % t.ndim
+        placements = [Replicate() if isinstance(p, Shard) and p.dim % t.ndim == d
+                      and sizes[0] % mesh.size(m) else p for m, p in enumerate(t.placements)]
+        if placements != list(t.placements):
+            t = t.redistribute(mesh, placements)
+    return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim % t.ndim + 1:])
+
+
+def merge_dims(t: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """`t.flatten(start, end)`. For a `DTensor` its gradient is brought back
+    to this layout before the backward pass splits the dims again, which
+    an unevenly sharded gradient would not allow."""
+    out = t.flatten(start, end)
+    if isinstance(out, DTensor) and out.requires_grad:
+        out = out.redistribute(out.device_mesh, out.placements)
+    return out
+
+
+def local_extent(x: DTensor, dim: int) -> tuple[int, int]:
+    """(global offset, length) of this rank's shard of `x` along `dim`.
+    Several mesh dims sharding one tensor dim split it in mesh order, the
+    first outermost (`placements_of`'s order)."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    offset, length = 0, x.shape[dim]
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim:
+            if length % mesh.size(m):
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split into "
+                                 f"{mesh.size(m)}")
+            length //= mesh.size(m)
+            offset += coord[m] * length
+    return offset, length
+
+
+def write_slice(buf: torch.Tensor, dim: int, start: int, value: torch.Tensor) -> None:
+    """buf[..., start:start + n, ...] = value along `dim`, IN PLACE. A
+    `DTensor` buffer takes `value` in its own layout when the write covers
+    all of `dim`; otherwise laid out as the buffer on every other dim and
+    whole along `dim`, each rank copying the part of the slice that falls in
+    its own shard, so a buffer sharded along `dim` (a KV cache on
+    ``kv_seq``) is written where it lies, with no gather."""
+    n = value.shape[dim]
+    if not isinstance(buf, DTensor):
+        buf.narrow(dim, start, n).copy_(value)
+        return
+    mesh = buf.device_mesh
+    full = start == 0 and n == buf.shape[dim]
+    target = [p if full or not (isinstance(p, Shard) and p.dim % buf.ndim == dim % buf.ndim)
+              else Replicate() for p in buf.placements]
+    if isinstance(value, DTensor):
+        value = value.redistribute(mesh, target)
+    else:
+        value = distribute_tensor(value, mesh, target, src_data_rank=None)
+    if full:
+        buf.to_local().copy_(value.to_local())
+        return
+    offset, length = local_extent(buf, dim)
+    lo, hi = max(start, offset), min(start + n, offset + length)
+    if lo < hi:
+        buf.to_local().narrow(dim, lo - offset, hi - lo).copy_(
+            value.to_local().narrow(dim, lo - start, hi - lo))
 
 
 def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:

@@ -80,7 +80,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.train, repro_torch.data, repro_torch.ft, repro_torch.launch.train, "
             "repro_torch.peer, repro_torch.peer.sim, repro_torch.data.trk, repro_torch.store.faults, "
             "repro_torch.models.quant, repro_torch.sharding, repro_torch.launch.mesh, "
-            "repro_torch.ft.elastic; "
+            "repro_torch.ft.elastic, repro_torch.launch.specs, repro_torch.launch.dryrun, "
+            "repro_torch.roofline, repro_torch.roofline.graph_parse, "
+            "repro_torch.roofline.report, repro_torch.roofline.inspect; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro')))")
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}

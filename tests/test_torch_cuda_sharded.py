@@ -1,0 +1,100 @@
+"""The kernels' route on a mesh, on the card: flash attention and the SSD
+scan called with `DTensor`s on a one-rank NCCL mesh go through `local_map`
+to the CUDA kernels (one launch each) and match their plain versions; a
+split over one rank counts as whole.
+
+Every test here needs an NVIDIA GPU and skips without one; the file imports
+no JAX, so it runs on a machine that has only PyTorch:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_sharded.py
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.launch.mesh import make_debug_mesh
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}      # tests/test_kernels.py
+
+
+@pytest.fixture
+def nccl():
+    """A one-rank NCCL group on the card, destroyed at teardown."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL and the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    yield dev
+    dist.destroy_process_group()
+
+
+def place(t, mesh, *placements):
+    return distribute_tensor(t, mesh, list(placements), src_data_rank=None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["batch_heads", "replicated"])
+def test_flash_through_local_map(nccl, dtype, layout):
+    """olmo-1b's serving wave (8, 16, 512, 128), causal."""
+    mesh = make_debug_mesh(1, 1)
+    gen = torch.Generator(device=nccl).manual_seed(0)
+    q, k, v = (torch.randn(8, 16, 512, 128, device=nccl, generator=gen).to(dtype)
+               for _ in range(3))
+    pl = (Shard(0), Shard(1)) if layout == "batch_heads" else (Replicate(), Replicate())
+    before = fa.launches
+    with torch.no_grad():
+        out = ops.flash_attention(*(place(t, mesh, *pl) for t in (q, k, v)), causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert isinstance(out, DTensor) and out.placements == pl
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.full_tensor(), want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_through_local_map(nccl, dtype):
+    """mamba2-1.3b's widths (64 heads of 64, state 128, chunk 256), a
+    512-token prompt of batch 2, with an initial state."""
+    mesh = make_debug_mesh(1, 1)
+    gen = torch.Generator(device=nccl).manual_seed(1)
+    x = (torch.randn(2, 512, 64, 64, device=nccl, generator=gen) * 0.1).to(dtype)
+    dt_a = -torch.rand(2, 512, 64, device=nccl, generator=gen) * 0.1
+    b, c = ((torch.randn(2, 512, 1, 128, device=nccl, generator=gen) * 0.1).to(dtype)
+            for _ in range(2))
+    init = torch.randn(2, 64, 64, 128, device=nccl, generator=gen) * 0.1
+    before = ssd.launches
+    with torch.no_grad():
+        y, h = ops.ssd_scan(place(x, mesh, Shard(0), Shard(2)), place(dt_a, mesh, Shard(0), Shard(2)),
+                            place(b, mesh, Shard(0), Replicate()),
+                            place(c, mesh, Shard(0), Replicate()), chunk=256,
+                            initial_state=place(init, mesh, Shard(0), Shard(1)))
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    want_y, want_h = ssd.ssd_scan_plain(x, dt_a, b, c, chunk=256, initial_state=init)
+    torch.testing.assert_close(y.full_tensor().float(), want_y.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    torch.testing.assert_close(h.full_tensor(), want_h, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_a_split_over_one_rank_counts_as_whole(nccl):
+    """On one rank every split is over one rank, so every layout is whole:
+    a `Shard` of the sequence over a mesh dim of size 1 reaches the kernel."""
+    mesh = make_debug_mesh(1, 1)
+    q = torch.randn(2, 4, 128, 64, device=nccl, dtype=torch.bfloat16)
+    before = fa.launches
+    with torch.no_grad():
+        out = ops.flash_attention(place(q, mesh, Shard(0), Shard(2)),
+                                  place(q, mesh, Shard(0), Shard(2)),
+                                  place(q, mesh, Shard(0), Shard(2)))
+    assert fa.launches == before + 1 and out.shape == q.shape

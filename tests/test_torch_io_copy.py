@@ -49,6 +49,9 @@ COPIED = [
     "ft/__init__.py",
     # The sharding package's exports.
     "sharding/__init__.py",
+    # The dry-run report's tables, read from artifacts with the reference's
+    # keys.
+    "roofline/report.py",
 ]
 
 # Modules that differ from the reference, why, and what checks them instead.
@@ -64,6 +67,14 @@ DIFFERENT = {
     # Resharding on torch.distributed's DTensor: a sharding is a mesh and its
     # placements (tests/test_torch_elastic.py).
     "ft/elastic.py": "torch DTensor",
+    # One H100's constants for the TPU's, and `analyze_graph` over the
+    # per-rank FX graph for `analyze_compiled` over the HLO
+    # (tests/test_torch_dryrun.py).
+    "roofline/analysis.py": "H100 constants, FX graph",
+    # The reference's exports name its HLO functions; the port's its graph's.
+    "roofline/__init__.py": "FX graph exports",
+    # Prints the top lists of the port's graph parser, not of the HLO's.
+    "roofline/inspect.py": "FX graph top lists",
 }
 
 

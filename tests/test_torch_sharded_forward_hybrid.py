@@ -1,0 +1,25 @@
+"""The sharded forward of the hybrid jamba-1.5-large-398b (attention,
+Mamba and MoE blocks in one stack), reduced, on a (4, 2) mesh of 8 gloo
+ranks under each rules table: the loss, every leaf's gradient, a prefill
+and two decode steps equal the unsharded forward within 1e-4 in fp32
+activations. A world of its own, as tests/test_torch_sharded_forward.py
+and tests/test_torch_sharded_forward_mixers.py have."""
+
+from __future__ import annotations
+
+import pytest
+
+from test_torch_sharded_forward import TABLES, check_world, run_world
+
+HYBRID_CONFIGS = ["jamba-1.5-large-398b"]
+
+
+@pytest.fixture(scope="module")
+def gloo_world(tmp_path_factory):
+    return run_world(tmp_path_factory, HYBRID_CONFIGS)
+
+
+@pytest.mark.parametrize("table", TABLES)
+@pytest.mark.parametrize("arch", HYBRID_CONFIGS)
+def test_sharded_forward_equals_unsharded(gloo_world, arch, table):
+    check_world(gloo_world, arch, table)

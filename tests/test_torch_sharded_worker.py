@@ -1,0 +1,261 @@
+"""The sharded forward on 8 gloo ranks, for tests/test_torch_sharded_forward.py.
+
+  PYTHONPATH=src python tests/test_torch_sharded_worker.py OUT.json [--ops] [ARCH ...]
+
+Spawns one world of 8 CPU processes (gloo, rendezvous through a file). On a
+(4, 2) ("data", "model") mesh every rank runs each config's reduced model
+in fp32 activations, its parameters laid out by each rules table
+(TRAIN_RULES, DECODE_RULES, DECODE_TP_RULES) and its inputs split on
+``batch``: the loss and every leaf's gradient, a prefill and two decode
+steps. Each rank also runs the same calls with no mesh on the same
+weights and inputs. Rank 0 writes, per config and table, the largest
+difference of each result from the unsharded one, as max |a - b| and as
+max |a - b| / (1 + |b|); the test holds them to its limit. With ``--ops``
+the ranks also call the kernels' entries (`kernels.ops`) on `DTensor`s
+laid out whole (replicated; batch on ``data`` and heads on ``model``) and
+split on a sequence dim, and record each result's largest difference from
+the plain version on the logical inputs, or the error raised. The module
+holds no test of its own: pytest imports it and collects nothing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch import tree as T
+from repro_torch.configs import all_configs, get_config
+from repro_torch.ft.elastic import reshard_params
+from repro_torch.launch.mesh import make_mesh_compat
+from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
+from repro_torch.models import lm as LM
+from repro_torch.models import make_model
+from repro_torch.sharding.rules import (
+    DECODE_RULES,
+    DECODE_TP_RULES,
+    TRAIN_RULES,
+    ShardingRules,
+    use_rules,
+)
+
+RANKS = 8
+MESH = (4, 2)
+TABLES = {"TRAIN_RULES": TRAIN_RULES, "DECODE_RULES": DECODE_RULES,
+          "DECODE_TP_RULES": DECODE_TP_RULES}
+BATCH, SEQ, DEC_PROMPT, STEPS = 8, 32, 8, 2
+JOIN_TIMEOUT_S = 600
+
+
+def inputs(cfg) -> dict:
+    """The same numpy-seeded inputs on every rank: a training batch, a
+    prompt and the decode steps' tokens (embeddings for a VLM)."""
+    rng = np.random.default_rng(0)
+
+    def ids(*shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
+
+    def emb(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    out = {"labels": ids(BATCH, SEQ)}
+    if cfg.is_encdec:
+        out.update(enc=emb(BATCH, SEQ, cfg.d_model), dec=ids(BATCH, SEQ),
+                   prompt=ids(BATCH, DEC_PROMPT), steps=ids(BATCH, STEPS))
+    elif cfg.embed_inputs:
+        out.update(inputs=emb(BATCH, SEQ, cfg.d_model), prompt=emb(BATCH, SEQ, cfg.d_model),
+                   steps=emb(BATCH, STEPS, cfg.d_model))
+    else:
+        out.update(inputs=ids(BATCH, SEQ), prompt=ids(BATCH, SEQ), steps=ids(BATCH, STEPS))
+    return out
+
+
+def forward(model, params, data: dict, rules: ShardingRules | None) -> dict:
+    """Loss, gradients, prefill and decode logits, as logical tensors."""
+    cfg = model.cfg
+
+    def place(t):
+        if rules is None:
+            return t
+        sharding = rules.sharding(("batch",) + (None,) * (t.ndim - 1), tuple(t.shape))
+        return distribute_tensor(t, sharding.mesh, sharding.placements, src_data_rank=None)
+
+    def full(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach()
+
+    d = {k: place(v) for k, v in data.items()}
+    out = {}
+    with use_rules(rules):
+        live = T.map_leaves(lambda t: t.detach().requires_grad_(True), params)
+        batch = (dict(enc_inputs=d["enc"], dec_ids=d["dec"], labels=d["labels"])
+                 if cfg.is_encdec else dict(inputs=d["inputs"], labels=d["labels"]))
+        loss = model.loss(live, batch)
+        out["loss"] = full(loss)
+        leaves = T.flatten(live)
+        # A VLM's inputs are embeddings: its table gets no gradient (zero).
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out["grads"] = [torch.zeros(t.shape) if g is None else full(g)
+                        for t, g in zip(leaves, grads)]
+        with torch.no_grad():
+            if cfg.is_encdec:
+                logits, caches = ED.encdec_prefill(params, cfg, d["enc"], d["prompt"],
+                                                   max_len=DEC_PROMPT + STEPS)
+                start = DEC_PROMPT
+            else:
+                logits, caches = LM.lm_prefill(params, cfg, d["prompt"], max_len=SEQ + STEPS)
+                start = SEQ
+            out["prefill"] = full(logits)
+            steps = []
+            for t in range(STEPS):
+                logits, caches = model.decode_step(params, d["steps"][:, t:t + 1], caches,
+                                                   start + t)
+                steps.append(full(logits))
+            out["decode"] = torch.stack(steps, dim=1)
+    return out
+
+
+def diff(a: torch.Tensor, b: torch.Tensor) -> list[float]:
+    d = (a.double() - b.double()).abs()
+    return [float(d.max()), float((d / (1 + b.double().abs())).max())]
+
+
+def ops_checks(mesh) -> dict:
+    """`ops.flash_attention` and `ops.ssd_scan` on DTensors: whole layouts
+    go through `local_map` to the plain version on each rank's shard and
+    must equal the plain version on the logical inputs; a layout split on
+    a sequence dim raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(8, 4, 64, 16, generator=gen)
+    k = torch.randn(8, 2, 64, 16, generator=gen)
+    v = torch.randn(8, 2, 64, 16, generator=gen)
+    x = torch.randn(8, 64, 4, 16, generator=gen)
+    dt_a = -torch.rand(8, 64, 4, generator=gen)
+    b = torch.randn(8, 64, 1, 16, generator=gen)
+    c = torch.randn(8, 64, 1, 16, generator=gen)
+    init = torch.randn(8, 4, 16, 16, generator=gen)
+    want_fa = fa.flash_attention_plain(q, k, v, causal=True)
+    want_y, want_h = ssd.ssd_scan_plain(x, dt_a, b, c, chunk=32, initial_state=init)
+
+    def place(t, placements):
+        return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+    out = {}
+    layouts = {"replicated": ([Replicate(), Replicate()], [Replicate(), Replicate()]),
+               "batch_heads": ([Shard(0), Shard(1)], [Shard(0), Shard(2)])}
+    for name, (attn, scan) in layouts.items():
+        got = ops.flash_attention(place(q, attn), place(k, attn), place(v, attn), causal=True)
+        out[f"flash_{name}"] = [float((got.full_tensor() - want_fa).abs().max()),
+                                [str(p) for p in got.placements]]
+        init_pl = [p if not isinstance(p, Shard) or p.dim == 0 else Shard(1) for p in scan]
+        y, h = ops.ssd_scan(place(x, scan), place(dt_a, scan), place(b, scan[:1] + [Replicate()]),
+                            place(c, scan[:1] + [Replicate()]), chunk=32,
+                            initial_state=place(init, init_pl))
+        out[f"ssd_{name}"] = [max(float((y.full_tensor() - want_y).abs().max()),
+                                  float((h.full_tensor() - want_h).abs().max())),
+                              [str(p) for p in y.placements]]
+    for name, call in (
+            ("flash_seq", lambda: ops.flash_attention(
+                place(q, [Shard(0), Replicate()]), place(k, [Shard(0), Shard(2)]),
+                place(v, [Shard(0), Shard(2)]))),
+            ("ssd_seq", lambda: ops.ssd_scan(
+                place(x, [Shard(0), Shard(1)]), place(dt_a, [Shard(0), Shard(1)]),
+                place(b, [Shard(0), Shard(1)]), place(c, [Shard(0), Shard(1)]), chunk=32))):
+        try:
+            call()
+            out[name] = "no error"
+        except ValueError as e:
+            out[name] = f"ValueError: {e}"
+    return out
+
+
+def run(names: list[str], with_ops: bool) -> dict:
+    L.COMPUTE_DTYPE = torch.float32
+    mesh = make_mesh_compat(MESH, ("data", "model"), device_type="cpu")
+    results = {}
+    for name in names:
+        t0 = time.perf_counter()
+        cfg = get_config(name).reduced()
+        model = make_model(cfg)
+        params = model.init(0, device="cpu")
+        data = inputs(cfg)
+        want = forward(model, params, data, None)
+        results[name] = {}
+        done = {}
+        for table_name, table in TABLES.items():
+            # DECODE_RULES equals TRAIN_RULES entry for entry: one run serves both.
+            key = json.dumps(table, sort_keys=True)
+            if key in done:
+                results[name][table_name] = results[name][done[key]]
+                continue
+            done[key] = table_name
+            rules = ShardingRules(mesh, dict(table))
+            got = forward(model, reshard_params(params, model.spec(), rules), data, rules)
+            results[name][table_name] = {
+                "loss": diff(got["loss"], want["loss"]),
+                "grads": max((diff(a, b) for a, b in zip(got["grads"], want["grads"])),
+                             key=lambda x: x[1]),
+                "prefill": diff(got["prefill"], want["prefill"]),
+                "decode": diff(got["decode"], want["decode"]),
+                "n_grads": len(got["grads"]),
+            }
+        results[name]["seconds"] = time.perf_counter() - t0
+    if with_ops:
+        results["ops"] = ops_checks(mesh)
+    return results
+
+
+def rank_main(rank: int, workdir: str, names: list[str], out: str, with_ops: bool) -> None:
+    torch.set_num_threads(1)    # one core a rank, not every core each
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/pg", rank=rank,
+                            world_size=RANKS)
+    try:
+        results = run(names, with_ops)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(results, f, indent=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv: list[str]) -> int:
+    out, rest = argv[0], argv[1:]
+    with_ops = "--ops" in rest
+    names = [a for a in rest if a != "--ops"] or sorted(all_configs())
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as workdir:
+        procs = [ctx.Process(target=rank_main, args=(r, workdir, names, out, with_ops))
+                 for r in range(RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + JOIN_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        print(f"FAIL: rank exit codes {codes}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -174,15 +174,17 @@ def test_chunk_is_capped_at_the_length_and_must_divide_it():
 def test_cpu_tensors_never_reach_the_kernel():
     """ops sends a CPU tensor to the plain version without touching the
     launch counter; the CUDA wrapper refuses CPU tensors before building or
-    launching anything; any other device raises."""
+    launching anything; a ``meta`` tensor (the dry-run's) goes to the plain
+    version too, which gives its shapes and allocates nothing."""
     _, (x, a, b, c) = _inputs((1, 64, 2, 1, 16, 16, 32, jnp.float32))
     before = ssd.launches
     y, _ = ops.ssd_scan(x, a, b, c, chunk=32)
     torch.testing.assert_close(y, ssd.ssd_scan_plain(x, a, b, c, chunk=32)[0])
     with pytest.raises(ValueError, match="one CUDA device"):
         ssd.ssd_scan_cuda(x, a, b, c, chunk=32)
-    with pytest.raises(ValueError, match="no ssd scan for device meta"):
-        ops.ssd_scan(x.to("meta"), a.to("meta"), b.to("meta"), c.to("meta"))
+    y, state = ops.ssd_scan(x.to("meta"), a.to("meta"), b.to("meta"), c.to("meta"), chunk=32)
+    assert y.device.type == "meta" and y.shape == x.shape and y.dtype == x.dtype
+    assert state.device.type == "meta" and tuple(state.shape) == (1, 2, 16, 16)
     assert ssd.launches == before
 
 
