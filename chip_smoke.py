@@ -121,26 +121,35 @@ Phases, each of which exits non-zero on a failed check:
      at the wave's shape (8, 16, 512, 128), a post-reshard snapshot at step
      1 restored bit-equal; seconds, restore split and peak memory printed.
      Then examples/torch/elastic_restore.py on the card and on 8 CPU ranks,
-     each in a process of its own, must exit 0 with its OK line;
+     each in a process of its own, both at once while phase 6's dry-run
+     processes trace, must exit 0 with its OK line;
   6. the sharded forward (after 5), in a one-rank NCCL group of its own
      on a 1 x 1 CUDA mesh: full-width olmo-1b in fp32 activations,
      `Model.loss` on 2 x 512 tokens and every leaf's gradient through the
      `DTensor` path under TRAIN_RULES (every `constrain` active) against
      the plain path on the same weights, then under DECODE_RULES a
-     prefill of 8 x 512 and 8 decode steps, each held to 1e-4; a bf16
+     prefill of 8 x 512 and 8 decode steps, each held to 1e-4; (6a) one
+     `train.build_train_step` step (remat, fp32 activations) of full-width
+     olmo-1b under TRAIN_RULES through the `DTensor` path against the plain
+     step from the same weights and fresh moments, at 1 microbatch of
+     2 x 512 tokens and 2 of 2 x 512: loss, grad_norm, lr, every moment and
+     every update p_new - p_old held to 1e-4, peak memory printed; a bf16
      prefill of the same wave through the `DTensor` path, its 16 flash
      launches through `local_map` counted (counts set to 0 just before)
      and the first held to its plain version at the bf16 and relative L2
      limits; mamba2-1.3b at full width cut to 2 blocks, a `DTensor`
      prefill whose 2 scan launches go through `local_map`, the first held
-     to its plain version, and its logits to the plain path's; the
+     to its plain version, and its logits to the plain path's; (6b) the
+     same 2 blocks' fp32 `Model.loss` and every gradient under
+     TRAIN_RULES against the plain path (1e-4), the training scan
+     (`ssd_chunked`) run on local shards only and no kernel launched; the
      `DTensor` TrainState of reduced olmo-1b saved by
      `CheckpointManager.maybe_save` and restored onto its mesh
      bit-equal; and, each in a process of its own started at the phase's
      start, `python -m repro_torch.launch.dryrun` for olmo-1b's
-     prefill_32k and decode_32k on the 16 x 16 mesh (a ``fake`` group of
-     256 ranks, nothing allocated), their report lines and seconds
-     printed;
+     prefill_32k, decode_32k and (6c) train_4k (the whole train step) on
+     the 16 x 16 mesh (a ``fake`` group of 256 ranks, nothing allocated),
+     their report lines and seconds printed;
   7. a JSON line of the kernels' numbers, then the result line.
 
 Needs a CUDA device and the repository's src/ beside this file.
@@ -297,7 +306,7 @@ MESH_URI = "sims3://mesh?latency_ms=10&bw_mbps=2000"
 # activations (|a - b| <= tol * (1 + |b|); the loss relative; each leaf's
 # gradient as a relative L2 error), and the dry-run's cells.
 SHARDED_TOL = 1e-4
-DRYRUN_CELLS = ("prefill_32k", "decode_32k")
+DRYRUN_CELLS = ("prefill_32k", "decode_32k", "train_4k")
 TOL = {"float32": 2e-3, "bfloat16": 2e-2}     # rtol = atol, tests/test_kernels.py
 # The flash kernel is also held to |out - ref| / |ref| over the whole output
 # (L2 norms). Over 1500 keys an output is about 0.04 in size, so the
@@ -2112,18 +2121,34 @@ def phase_usecases(torch, np) -> None:
 def run_example(name: str, ok: str, args: tuple = ()) -> None:
     """examples/torch/<name>.py with `args` (its defaults) in a process of
     its own: it must exit 0 and print a line that starts with `ok`."""
-    t0 = time.perf_counter()
+    run_examples([(name, ok, args)])
+
+
+def run_examples(runs: list) -> None:
+    """`run_example` for each (name, ok, args) of `runs`, the processes
+    started together and each waited for in turn."""
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    res = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "torch", f"{name}.py"),
-                          *args], capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
-    lines = res.stdout.strip().splitlines()
-    what = " ".join((name, *args))
-    for line in lines:
-        print(f"{what}: {line}")
-    print(f"{what}: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
-    if res.returncode != 0 or not any(line.startswith(ok) for line in lines):
-        print(res.stderr[-3000:], file=sys.stderr)
-        fail(f"examples/torch/{name}.py {' '.join(args)} failed on the card")
+    t0 = time.perf_counter()
+    procs = [(name, ok, args, subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", "torch", f"{name}.py"), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT))
+        for name, ok, args in runs]
+    try:
+        for name, ok, args, proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            lines = stdout.strip().splitlines()
+            what = " ".join((name, *args))
+            for line in lines:
+                print(f"{what}: {line}")
+            print(f"{what}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+            if proc.returncode != 0 or not any(line.startswith(ok) for line in lines):
+                print(stderr[-3000:], file=sys.stderr)
+                fail(f"examples/torch/{name}.py {' '.join(args)} failed on the card")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def lm_run(torch, cfg, params, ids) -> dict:
@@ -2373,10 +2398,19 @@ def phase_mesh(torch, np, fa, kernels: dict) -> tuple[int, dict]:
     clear_store_cache()
     gc.collect()
     torch.cuda.empty_cache()
-    run_example("elastic_restore", "OK", ("--device", "cuda"))
-    run_example("elastic_restore", "OK", ("--device", "cpu"))
-    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    print(f"mesh phase (before the examples): {time.perf_counter() - t_phase:.1f} s")
     return counts["flash_attention"], olmo_wave
+
+
+def start_dryruns() -> dict:
+    """`python -m repro_torch.launch.dryrun` for each of olmo-1b's
+    DRYRUN_CELLS on the 16 x 16 mesh, each in a process of its own (the
+    card is not used): {cell: (start time, process)}."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    return {cell: (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b", "--shape", cell,
+         "--out", os.path.join(ROOT, "build", "dryrun")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)) for cell in DRYRUN_CELLS}
 
 
 def first_launch(mod, name: str):
@@ -2401,26 +2435,36 @@ def first_launch(mod, name: str):
     return seen, lambda: setattr(mod, name, real)
 
 
-def olmo_dtensor_run(torch, cfg, model, params, rules, ids, labels):
+def split_on_batch(rules, t):
+    """`t` (the same global value on every rank) split on ``batch`` under
+    `rules`; itself with no rules."""
+    if rules is None:
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    sh = rules.sharding(("batch",) + (None,) * (t.ndim - 1), tuple(t.shape))
+    return distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None)
+
+
+def logical(t):
+    """A `DTensor`'s logical value (a collective), a plain tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def dtensor_run(torch, cfg, model, params, rules, ids, labels):
     """`Model.loss` of (ids, labels), every leaf's gradient, then a prefill
     of `ids` and 8 decode steps over the next tokens; under `rules` (a
     mesh) the parameters are placed by them and the inputs split on
     ``batch``, else plain. Returns logical tensors."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-
     from repro_torch import tree
     from repro_torch.ft.elastic import reshard_params
     from repro_torch.models import lm as LM
     from repro_torch.sharding.rules import use_rules
 
-    def place(t):
-        if rules is None:
-            return t
-        sh = rules.sharding(("batch",) + (None,) * (t.ndim - 1), tuple(t.shape))
-        return distribute_tensor(t, sh.mesh, sh.placements, src_data_rank=None)
-
     def full(t):
-        return (t.full_tensor() if isinstance(t, DTensor) else t).detach().float().cpu()
+        return logical(t).detach().float().cpu()
 
     if rules is not None:
         params = reshard_params(params, model.spec(), rules)
@@ -2428,22 +2472,153 @@ def olmo_dtensor_run(torch, cfg, model, params, rules, ids, labels):
     with use_rules(rules):
         if labels is not None:
             live = tree.map_leaves(lambda t: t.detach().requires_grad_(True), params)
-            loss = model.loss(live, dict(inputs=place(ids), labels=place(labels)))
+            loss = model.loss(live, dict(inputs=split_on_batch(rules, ids),
+                                         labels=split_on_batch(rules, labels)))
             out["loss"] = float(full(loss))
             out["grads"] = [full(g) for g in torch.autograd.grad(loss, tree.flatten(live))]
             del live, loss
         else:
             with torch.no_grad():
                 s = ids.shape[1] - 8
-                logits, caches = LM.lm_prefill(params, cfg, place(ids[:, :s]), max_len=s + 8)
+                logits, caches = LM.lm_prefill(params, cfg, split_on_batch(rules, ids[:, :s]),
+                                               max_len=s + 8)
                 out["prefill"] = full(logits)
                 steps = []
                 for t in range(s, s + 8):
-                    logits, caches = model.decode_step(params, place(ids[:, t:t + 1]), caches, t)
+                    logits, caches = model.decode_step(
+                        params, split_on_batch(rules, ids[:, t:t + 1]), caches, t)
                     steps.append(full(logits))
                 out["decode"] = torch.stack(steps, dim=1)
                 del caches
     return out
+
+
+def worst_leaf_rel(torch, got: list, want: list) -> float:
+    """The largest relative L2 error over the leaves, each against its own
+    norm or a thousandth of the largest leaf's, whichever is larger."""
+    largest = max(float(b.norm()) for b in want)
+    return max(float((a.float() - b.float()).norm() / max(float(b.norm()), 1e-3 * largest))
+               for a, b in zip(got, want))
+
+
+def train_step_run(torch, model, params, rules, ids, labels, microbatches: int) -> dict:
+    """One `train.build_train_step` step (remat on, AdamW's defaults) from
+    fresh moments: under `rules` the parameters and moments laid out by
+    them and the batch split on ``batch`` (the `DTensor` path), else plain.
+    Returns the metrics as floats and, leaf by leaf, the update p_new -
+    p_old and the new moments as logical tensors on the card."""
+    from repro_torch import tree
+    from repro_torch.ft.elastic import reshard_params
+    from repro_torch.sharding.rules import use_rules
+    from repro_torch.train import AdamWConfig, StepConfig, TrainState, build_train_step, init_state
+
+    if rules is not None:
+        params = reshard_params(params, model.spec(), rules)
+    state = TrainState(params, init_state(params))
+    step = build_train_step(model, AdamWConfig(), StepConfig(microbatches=microbatches))
+    with use_rules(rules):
+        new, metrics = step(state, {"inputs": split_on_batch(rules, ids),
+                                    "labels": split_on_batch(rules, labels)})
+    out = {k: float(logical(v)) for k, v in metrics.items()}
+    out["update"] = [logical(a) - logical(b) for a, b in zip(tree.flatten(new.params),
+                                                             tree.flatten(params))]
+    out["m"] = [logical(t) for t in tree.flatten(new.opt.m)]
+    out["v"] = [logical(t) for t in tree.flatten(new.opt.v)]
+    return out
+
+
+def phase_sharded_train_step(torch, cfg, model, params, mesh, rng, dev, kernels: dict) -> dict:
+    """Phase 6a: full-width olmo-1b's train step through the `DTensor` path
+    (TRAIN_RULES on the one-rank mesh) against the plain path from the same
+    weights and fresh state, fp32 activations (the caller sets them): one
+    microbatch of 2 x 512 tokens, then 2 microbatches of 2 x 512 (a
+    `DTensor` microbatch of one row cannot be flattened: `DTensor` reads
+    the merge of a split dim of size 1 as its removal). Loss, grad_norm and
+    lr relative; every moment and every update p_new - p_old (at warmup lr
+    is 3e-6, so the parameters themselves would hide an error) as each
+    leaf's relative L2 error. Neither kernel may launch (training takes
+    the plain paths); returns the launch counts over both steps."""
+    from repro_torch.sharding.rules import TRAIN_RULES, ShardingRules
+
+    rules = ShardingRules(mesh, dict(TRAIN_RULES))
+    torch.cuda.synchronize()
+    for mod in kernels.values():
+        mod.launches = 0
+    for micro in (1, 2):
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2 * micro, 513))).to(dev)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        want = train_step_run(torch, model, params, None, ids[:, :-1], ids[:, 1:], micro)
+        got = train_step_run(torch, model, params, rules, ids[:, :-1], ids[:, 1:], micro)
+        torch.cuda.synchronize()
+        rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm", "lr")}
+        leaves = {k: worst_leaf_rel(torch, got[k], want[k]) for k in ("update", "m", "v")}
+        print(f"sharded olmo-1b train step, fp32, TRAIN_RULES, {micro} microbatch(es) of "
+              f"{ids.shape[0] // micro} x {ids.shape[1] - 1} tokens: loss DTensor {got['loss']!r}, "
+              f"plain {want['loss']!r}; grad_norm {got['grad_norm']!r} / {want['grad_norm']!r}; lr "
+              f"{got['lr']!r} / {want['lr']!r}; relative diffs "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in rel.items())}; "
+              f"worst leaf relative L2 of {len(got['update'])} leaves: "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in leaves.items())} (tol {SHARDED_TOL}); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not all(v <= SHARDED_TOL for v in (*rel.values(), *leaves.values())):
+            fail(f"sharded train step ({micro} microbatches): the DTensor path disagrees with "
+                 f"the plain path")
+        del got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = {name: mod.launches for name, mod in kernels.items()}
+    if any(counts.values()):
+        fail(f"sharded train step: kernel launches {counts}, want none")
+    return counts
+
+
+def phase_sharded_mamba_grads(torch, kernels: dict, mcfg, mmodel, mparams, mesh, ids) -> dict:
+    """Phase 6b: mamba2-1.3b (full width, 2 blocks) `Model.loss` and every
+    gradient, fp32 activations (the caller sets them), through the
+    `DTensor` path under TRAIN_RULES against the plain path: the training
+    scan (`ssd_chunked`, differentiable) must run on local shards through
+    `local_map` only, and neither kernel may launch."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import ssd as S
+    from repro_torch.sharding.rules import TRAIN_RULES, ShardingRules
+
+    t0 = time.perf_counter()
+    real = S.ssd_chunked
+    calls = {"local": 0, "DTensor": 0}
+
+    def spy(x, *args, **kw):
+        calls["DTensor" if isinstance(x, DTensor) else "local"] += 1
+        return real(x, *args, **kw)
+
+    S.ssd_chunked = spy
+    try:
+        torch.cuda.synchronize()
+        for mod in kernels.values():
+            mod.launches = 0
+        got = dtensor_run(torch, mcfg, mmodel, mparams, ShardingRules(mesh, dict(TRAIN_RULES)),
+                          ids[:, :-1], ids[:, 1:])
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in kernels.items()}
+    finally:
+        S.ssd_chunked = real
+    want = dtensor_run(torch, mcfg, mmodel, mparams, None, ids[:, :-1], ids[:, 1:])
+    rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    grad_err = worst_leaf_rel(torch, got["grads"], want["grads"])
+    print(f"sharded mamba2-1.3b (2 blocks, d {mcfg.d_model}) loss, fp32, TRAIN_RULES (2 x 512 "
+          f"tokens, {len(got['grads'])} leaves): loss DTensor {got['loss']!r}, plain "
+          f"{want['loss']!r}, relative diff {rel_loss:.3e}; gradients worst leaf relative L2 "
+          f"{grad_err:.3e} (tol {SHARDED_TOL}); training scan calls {calls} (want only local "
+          f"shards, through local_map); kernel launches {counts} (want 0); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (rel_loss <= SHARDED_TOL and grad_err <= SHARDED_TOL):
+        fail("sharded mamba loss: the DTensor path disagrees with the plain path")
+    if calls["DTensor"] or calls["local"] < 2 * mcfg.num_layers or any(counts.values()):
+        fail("sharded mamba loss: the training scan did not go through local_map alone")
+    return counts
 
 
 def close_to(torch, a, b, tol: float) -> tuple[float, bool]:
@@ -2452,9 +2627,11 @@ def close_to(torch, a, b, tol: float) -> tuple[float, bool]:
         (err <= tol + tol * b.abs()).all())
 
 
-def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
+def phase_sharded(torch, np, fa, ssd, kernels: dict, dry: dict | None = None) -> dict:
     """The sharded forward on the card (phase 6): see the module docstring.
-    Returns the flash and scan launches of its DTensor prefills."""
+    `dry` holds the dry-run's processes if they were started already
+    (`start_dryruns`), else they start here. Returns the flash and scan
+    launches of its DTensor prefills and train steps, by name."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, distribute_tensor
 
@@ -2474,11 +2651,7 @@ def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
 
     t_phase = time.perf_counter()
     out_dir = os.path.join(ROOT, "build", "dryrun")
-    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    dry = {cell: (time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b", "--shape", cell,
-         "--out", out_dir], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=env, cwd=ROOT)) for cell in DRYRUN_CELLS}
+    dry = dry or start_dryruns()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
@@ -2493,13 +2666,11 @@ def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
         L.COMPUTE_DTYPE = torch.float32
         try:
             t0 = time.perf_counter()
-            got = olmo_dtensor_run(torch, cfg, model, params,
+            got = dtensor_run(torch, cfg, model, params,
                                    ShardingRules(mesh, dict(TRAIN_RULES)), ids[:, :-1], ids[:, 1:])
-            want = olmo_dtensor_run(torch, cfg, model, params, None, ids[:, :-1], ids[:, 1:])
+            want = dtensor_run(torch, cfg, model, params, None, ids[:, :-1], ids[:, 1:])
             rel_loss = abs(got["loss"] - want["loss"]) / abs(want["loss"])
-            largest = max(g.norm() for g in want["grads"])
-            grad_err = max(float((a - b).norm() / torch.maximum(b.norm(), 1e-3 * largest))
-                           for a, b in zip(got["grads"], want["grads"]))
+            grad_err = worst_leaf_rel(torch, got["grads"], want["grads"])
             grad_max = max(float((a - b).abs().max()) for a, b in zip(got["grads"], want["grads"]))
             print(f"sharded olmo-1b loss, fp32, TRAIN_RULES on mesh "
                   f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (2 x 512 tokens, "
@@ -2514,8 +2685,8 @@ def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
             t0 = time.perf_counter()
             wave = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 520))).to(dev)
             decode_rules = ShardingRules(mesh, dict(DECODE_RULES))
-            got = olmo_dtensor_run(torch, cfg, model, params, decode_rules, wave, None)
-            want = olmo_dtensor_run(torch, cfg, model, params, None, wave, None)
+            got = dtensor_run(torch, cfg, model, params, decode_rules, wave, None)
+            want = dtensor_run(torch, cfg, model, params, None, wave, None)
             errs = {k: close_to(torch, got[k], want[k], SHARDED_TOL) for k in ("prefill", "decode")}
             print(f"sharded olmo-1b serving, fp32, DECODE_RULES (8 x 512 prefill, 8 decode "
                   f"steps): max|diff| prefill logits {errs['prefill'][0]:.3e}, decode logits "
@@ -2524,6 +2695,8 @@ def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
             if not all(ok for _, ok in errs.values()):
                 fail("sharded serving: the DTensor path disagrees with the plain path")
             del got, want
+            launches["olmo-1b-dtensor-train-step"] = phase_sharded_train_step(
+                torch, cfg, model, params, mesh, rng, dev, kernels)
         finally:
             L.COMPUTE_DTYPE = torch.bfloat16
 
@@ -2557,7 +2730,7 @@ def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
               f"{bool(torch.isfinite(logits.full_tensor()).all())}")
         if counts != {"flash_attention": cfg.num_layers, "ssd_scan": 0} or not ok:
             fail("sharded prefill: flash launches or its output are wrong")
-        launches["olmo-1b"] = counts
+        launches["olmo-1b-dtensor-local_map"] = counts
         del placed, params, logits, seen, q, k, v, o, ref
 
         # mamba2-1.3b at full width, 2 blocks: the scan through local_map.
@@ -2593,8 +2766,16 @@ def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
               f"DTensor vs plain path max|diff| {lerr:.3e} (both through the kernel)")
         if mcounts != {"flash_attention": 0, "ssd_scan": mcfg.num_layers} or not (oky and okh):
             fail("sharded mamba prefill: scan launches or its output are wrong")
-        launches["mamba2-1.3b-2-blocks"] = mcounts
-        del mparams, mplaced, mlogits, plain_logits, seen, args, y, h, ry, rh
+        launches["mamba2-1.3b-2-blocks-dtensor-local_map"] = mcounts
+        del mplaced, mlogits, plain_logits, seen, args, y, h, ry, rh
+        L.COMPUTE_DTYPE = torch.float32
+        try:
+            ids = torch.from_numpy(rng.integers(0, mcfg.vocab_size, (2, 513))).to(dev)
+            launches["mamba2-1.3b-2-blocks-dtensor-train"] = phase_sharded_mamba_grads(
+                torch, kernels, mcfg, mmodel, mparams, mesh, ids)
+        finally:
+            L.COMPUTE_DTYPE = torch.bfloat16
+        del mparams
 
         # CheckpointManager.maybe_save of a DTensor TrainState.
         small = make_model(get_config("olmo-1b").reduced())
@@ -2645,8 +2826,8 @@ def phase_sharded(torch, np, fa, ssd, kernels: dict) -> dict:
         with open(os.path.join(out_dir, f"olmo-1b__{cell}__pod16x16.json")) as f:
             rec = json.load(f)
         line = stdout.strip().splitlines()[-1]
-        print(f"dry-run olmo-1b {cell} (process of its own, done {secs:.1f} s after the phase "
-              f"began; traced in {rec['lower_s']} s): {line.strip()}; "
+        print(f"dry-run olmo-1b {cell} (process of its own, done {secs:.1f} s after it "
+              f"started; traced in {rec['lower_s']} s): {line.strip()}; "
               f"{rec['flops_per_chip']:.4e} FLOP, {rec['bytes_per_chip']:.4e} B, "
               f"{rec['coll_bytes_per_chip']:.4e} collective B a chip; H100 terms derived from "
               f"published peaks")
@@ -2745,10 +2926,17 @@ def main() -> None:
     olmo, flash["olmo_wave"] = phase_mesh(torch, np, fa, kernels)
     flash["launches_by_config"]["olmo-1b"] = olmo
     scan["launches_by_config"]["olmo-1b"] = 0    # phase_mesh fails unless it was 0
-    sharded = phase_sharded(torch, np, fa, ssd, kernels)
+    # The dry-run's processes trace on the host while the mesh phase's
+    # examples run (they print no time that the tracing would disturb).
+    dry = start_dryruns()
+    t0 = time.perf_counter()
+    run_examples([("elastic_restore", "OK", ("--device", "cuda")),
+                  ("elastic_restore", "OK", ("--device", "cpu"))])
+    print(f"mesh phase examples: {time.perf_counter() - t0:.1f} s")
+    sharded = phase_sharded(torch, np, fa, ssd, kernels, dry)
     for name, counts in sharded.items():
-        flash["launches_by_config"][f"{name}-dtensor-local_map"] = counts["flash_attention"]
-        scan["launches_by_config"][f"{name}-dtensor-local_map"] = counts["ssd_scan"]
+        flash["launches_by_config"][name] = counts["flash_attention"]
+        scan["launches_by_config"][name] = counts["ssd_scan"]
 
     rows = [flash, scan]
     for row in rows:

@@ -29,7 +29,7 @@ the graph; training takes the plain paths (`models.layers._attn_core`,
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import flash_attention as _fa
@@ -88,7 +88,10 @@ def _on_shards(fn, name: str, tensors: list, batch_dims: list, head_dims: list,
                out_dims: list):
     """`fn` on each rank's local shards of `tensors`, laid out by
     `_whole_layout`; the outputs are DTensors whose batch and head dims
-    (`out_dims`: (batch, head) of each) are split as the first input's."""
+    (`out_dims`: (batch, head) of each) are split as the first input's.
+    Under autograd, an input replicated across a mesh dim on which another
+    is split (B and C of one group, which every rank's heads read) gets a
+    partial-sum gradient there: each rank's is its own heads' share."""
     layout = _whole_layout(name, tensors, batch_dims, head_dims)
     mesh = tensors[0].device_mesh
     tensors = [t.redistribute(mesh, pl) for t, pl in zip(tensors, layout)]
@@ -98,9 +101,30 @@ def _on_shards(fn, name: str, tensors: list, batch_dims: list, head_dims: list,
         return [Shard(b) if isinstance(p, Shard) and p.dim == batch_dims[0] else
                 Shard(h) if isinstance(p, Shard) else Replicate() for p in lead]
 
+    split = [any(isinstance(pl[m], Shard) for pl in layout) for m in range(mesh.ndim)]
+    grads = tuple([Partial() if split[m] and isinstance(p, Replicate) else p
+                   for m, p in enumerate(pl)] for pl in layout)
     outs = [out_placements(b, h) for b, h in out_dims]
     return local_map(fn, out_placements=outs[0] if len(outs) == 1 else tuple(outs),
-                     in_placements=tuple(layout), device_mesh=mesh)(*tensors)
+                     in_placements=tuple(layout), in_grad_placements=grads,
+                     device_mesh=mesh)(*tensors)
+
+
+def ssd_on_shards(scan, name: str, x: DTensor, dt_a: DTensor, b_proj: DTensor,
+                  c_proj: DTensor, initial_state: DTensor | None = None):
+    """``scan(x, dt_a, b_proj, c_proj[, initial_state])``, a function with the
+    SSD scan's signature and results, on each rank's local shards of
+    `DTensor`s laid out whole (batch dim 0, head dims 2, 2, 2, 2 and 1;
+    `_whole_layout`): the outputs y and the final state are `DTensor`s.
+    `to_local` and `from_local` carry gradients, so a differentiable `scan`
+    (`ssd_chunked`, training's) stays differentiable."""
+    tensors = [x, dt_a, b_proj, c_proj]
+    batch, heads = [0, 0, 0, 0], [2, 2, 2, 2]
+    if initial_state is not None:
+        tensors.append(initial_state)
+        batch.append(0)
+        heads.append(1)
+    return _on_shards(scan, name, tensors, batch, heads, [(0, 2), (0, 1)])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -133,17 +157,10 @@ def ssd_scan(x: torch.Tensor, dt_a: torch.Tensor, b_proj: torch.Tensor,
     B/C: (B, S, G, N); returns (y (B, S, H, P) in x's dtype, final state
     (B, H, P, N) fp32). The chunk is min(chunk, S) and must divide S."""
     if isinstance(x, DTensor):
-        tensors = [x, dt_a, b_proj, c_proj]
-        batch, heads = [0, 0, 0, 0], [2, 2, 2, 2]
-        if initial_state is not None:
-            tensors.append(initial_state)
-            batch.append(0)
-            heads.append(1)
-
         def scan(x, dt_a, b_proj, c_proj, init=None):
             return ssd_scan(x, dt_a, b_proj, c_proj, chunk=chunk, initial_state=init)
 
-        return _on_shards(scan, "ssd_scan", tensors, batch, heads, [(0, 2), (0, 1)])
+        return ssd_on_shards(scan, "ssd_scan", x, dt_a, b_proj, c_proj, initial_state)
     if x.device.type == "meta":
         return _ssd.ssd_scan_plain(x, dt_a, b_proj, c_proj, chunk=chunk,
                                    initial_state=initial_state)

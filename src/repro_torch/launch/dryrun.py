@@ -7,21 +7,25 @@ host CPU devices) compiles without a TPU. The 16 x 16 and 2 x 16 x 16
 meshes are ``fake`` process groups of 256 and 512 ranks in this one
 process (``torch.distributed``'s fake backend, a `HashStore` rendezvous):
 this process is rank 0, every tensor a ``meta`` stand-in, laid out by the
-rules as a `DTensor`. A cell's function (the model's prefill or decode
-step under `use_rules`) is traced by `make_fx` around a wrapper that
-takes rank 0's local shards, wraps them with `DTensor.from_local` and
-returns its outputs' `to_local()`: the graph is one rank's work, with
-`DTensor`'s communication as functional collectives, which
-`roofline.graph_parse` reads as the reference reads the optimized HLO.
-``lower_s`` is that trace's time; nothing is compiled (``compile_s`` 0).
+rules as a `DTensor`. A cell's function (the whole train step, or the
+model's prefill or decode step, under `use_rules`) is traced by `make_fx`
+around a wrapper that takes rank 0's local shards, wraps them with
+`DTensor.from_local` and returns its outputs' `to_local()`: the graph is
+one rank's work, with `DTensor`'s communication as functional
+collectives, which `roofline.graph_parse` reads as the reference reads
+the optimized HLO. ``lower_s`` is that trace's time; nothing is compiled
+(``compile_s`` 0).
 
-Scope: prefill and decode cells. The train cells remat each period in the
-reference, and whether `make_fx` traces `torch.utils.checkpoint`'s
-recompute is not settled: `run_cells` records them as skipped and
-`lower_cell` refuses them.
+A train cell is `train.build_train_step`'s step (loss, backward with each
+period recomputed, AdamW) on `abstract_train_state` and the batch's
+specs: the backward and the recompute of `torch.utils.checkpoint` are in
+the traced graph. The reference donates the state to its step, so the
+record's ``alias_bytes`` is the rank's share of the state's bytes.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape prefill_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k \
+      [--microbatches 2] [--moments-dtype bfloat16]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--meshes pod16x16]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out build/dryrun
 """
@@ -47,10 +51,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.api import make_model
 from repro_torch.roofline.analysis import analyze_graph
 from repro_torch.sharding.rules import DECODE_RULES, TRAIN_RULES, ShardingRules, use_rules
-
-TRAIN_SKIP_REASON = ("train cells wait for the next slice of the port: the reference remats "
-                     "each period, and tracing torch.utils.checkpoint's recompute with make_fx "
-                     "is not settled")
+from repro_torch.train import AdamWConfig, StepConfig, abstract_train_state, build_train_step
 
 
 def start_fake_group(world_size: int) -> None:
@@ -79,8 +80,9 @@ def _mesh_and_rules(shape_kind: str, multi_pod: bool):
 
 
 def _leaves(tree, out: list) -> list:
-    """The tensors of `tree` (dicts, lists, tuples, dataclasses such as the
-    caches and `QTensor`), in a fixed order."""
+    """The tensors of `tree` (dicts, lists, tuples and NamedTuples such as
+    the `TrainState`, dataclasses such as the caches and `QTensor`), in a
+    fixed order."""
     if isinstance(tree, dict):
         for v in tree.values():
             _leaves(v, out)
@@ -100,7 +102,8 @@ def _rebuild(tree, leaves):
     if isinstance(tree, dict):
         return {k: _rebuild(v, leaves) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaves) for v in tree)
+        children = [_rebuild(v, leaves) for v in tree]
+        return type(tree)(*children) if hasattr(tree, "_fields") else type(tree)(children)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{f.name: _rebuild(getattr(tree, f.name), leaves)
                                             for f in dataclasses.fields(tree)})
@@ -114,8 +117,9 @@ def trace_per_rank(fn, args: tuple, rules: ShardingRules):
     tensors) over a wrapper that takes the local shards of `args`' tensors,
     wraps the sharded ones with `DTensor.from_local` (their global shapes
     and strides given) and returns the local shards of the outputs.
-    Returns (graph module with dead code removed, the local ``meta``
-    inputs)."""
+    Grad mode is off around `fn`; a train step turns it on for its loss and
+    backward. Returns (graph module with dead code removed, the local
+    ``meta`` inputs)."""
     leaves = _leaves(args, [])
     local = [t.to_local() if isinstance(t, DTensor) else t for t in leaves]
     layouts = [(t.device_mesh, t.placements, t.shape, t.stride()) if isinstance(t, DTensor)
@@ -151,8 +155,6 @@ def lower_cell(
     (report dict, graph module)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
-    if shape.kind == "train":
-        raise NotImplementedError(f"{arch} x {shape_name}: {TRAIN_SKIP_REASON}")
     if dist.is_initialized():
         raise RuntimeError("a process group is live: the dry-run starts its own fake group")
     model = make_model(cfg)
@@ -162,8 +164,21 @@ def lower_cell(
         mesh, rules = _mesh_and_rules(shape.kind, multi_pod)
         chips = mesh.size()
         t0 = time.time()
+        alias_bytes = 0
         with use_rules(rules):
-            if shape.kind == "prefill":
+            if shape.kind == "train":
+                step_cfg = StepConfig(microbatches=microbatches, q_chunk=q_chunk)
+                opt_cfg = AdamWConfig(moments_dtype=moments_dtype)
+                state = abstract_train_state(model, rules, opt_cfg=opt_cfg)
+                batch = input_specs(model, shape, rules)
+                gm, local = trace_per_rank(build_train_step(model, opt_cfg, step_cfg),
+                                           (state, batch), rules)
+                # The state is donated to the step: its local shards, the
+                # first of the graph's inputs.
+                alias_bytes = sum(t.numel() * t.element_size()
+                                  for t in local[:len(_leaves(state, []))])
+                tokens = shape.global_batch * shape.seq_len
+            elif shape.kind == "prefill":
                 params = model.abstract_params(rules, param_dtype=L.COMPUTE_DTYPE)
                 batch = input_specs(model, shape, rules)
                 gm, local = trace_per_rank(
@@ -197,6 +212,7 @@ def lower_cell(
             chips=chips,
             n_active_params=model.active_param_count(),
             tokens=tokens,
+            alias_bytes=alias_bytes,
         )
     finally:
         dist.destroy_process_group()
@@ -215,7 +231,7 @@ def lower_cell(
 
 
 def run_cells(cells, *, meshes=("pod16x16", "pod2x16x16"), out_dir=None,
-              microbatches=1, stop_on_error=False):
+              microbatches=1, moments_dtype="float32", stop_on_error=False):
     results = []
     for arch, shape_name in cells:
         cfg = get_config(arch)
@@ -223,15 +239,11 @@ def run_cells(cells, *, meshes=("pod16x16", "pod2x16x16"), out_dir=None,
         for mesh_name in meshes:
             multi_pod = mesh_name == "pod2x16x16"
             key = f"{arch}__{shape_name}__{mesh_name}"
-            reason = None
             if shape_name not in applicable:
-                reason = ("long_500k requires sub-quadratic sequence mixing "
-                          "(full-attention arch); see DESIGN.md")
-            elif SHAPES[shape_name].kind == "train":
-                reason = TRAIN_SKIP_REASON
-            if reason is not None:
                 rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                       "status": "skipped", "reason": reason}
+                       "status": "skipped",
+                       "reason": ("long_500k requires sub-quadratic sequence mixing "
+                                  "(full-attention arch); see DESIGN.md")}
                 results.append(rec)
                 print(f"SKIP  {key}: {rec['reason']}")
                 _write(out_dir, key, rec)
@@ -240,7 +252,7 @@ def run_cells(cells, *, meshes=("pod16x16", "pod2x16x16"), out_dir=None,
                 t0 = time.time()
                 rec, _ = lower_cell(
                     arch, shape_name, multi_pod=multi_pod,
-                    microbatches=microbatches, verbose=False,
+                    microbatches=microbatches, moments_dtype=moments_dtype, verbose=False,
                 )
                 rec["status"] = "ok"
                 rec["wall_s"] = round(time.time() - t0, 2)
@@ -303,6 +315,7 @@ def main(argv=None) -> None:
             meshes=tuple(args.meshes.split(",")),
             out_dir=args.out,
             microbatches=args.microbatches,
+            moments_dtype=args.moments_dtype,
             stop_on_error=args.stop_on_error,
         )
         ok = sum(r.get("status") == "ok" for r in results)

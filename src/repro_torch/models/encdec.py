@@ -68,7 +68,7 @@ def encode(p: dict, cfg: ModelConfig, enc_inputs: torch.Tensor, *,
     x = constrain(_add_sinusoid(enc_inputs.to(L.COMPUTE_DTYPE)), "batch", None, "residual")
     x, _, _ = LM.stack_fwd(p["enc_layers"], cfg, x, start=0, causal=False,
                            q_chunk=q_chunk, remat=remat, pattern=ENC_PATTERN)
-    return L.apply_norm(p["enc_final_norm"], cfg, x)
+    return LM.whole_along_d(L.apply_norm(p["enc_final_norm"], cfg, x))
 
 
 def decode_train(p: dict, cfg: ModelConfig, enc_hidden: torch.Tensor,
@@ -80,7 +80,7 @@ def decode_train(p: dict, cfg: ModelConfig, enc_hidden: torch.Tensor,
                   "batch", None, "residual")
     x, _, _ = LM.stack_fwd(p["layers"], cfg, x, start=0, enc_hidden=enc_hidden,
                            causal=True, q_chunk=q_chunk, remat=remat)
-    return L.apply_norm(p["final_norm"], cfg, x)
+    return LM.whole_along_d(L.apply_norm(p["final_norm"], cfg, x))
 
 
 def encdec_loss(p: dict, cfg: ModelConfig, enc_inputs: torch.Tensor,

@@ -243,6 +243,25 @@ def _heads_split(o: torch.Tensor) -> torch.Tensor:
     return o.redistribute(o.device_mesh, placements)
 
 
+def _contraction_split(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`o` (B, S, H * D) for ``o @ wo``, ``wo`` being `w` (H * D, d). Under
+    autograd, on a mesh dim of more than one rank across which both hold
+    every head (the kv_seq mode: the heads do not split), `o` is split
+    along its heads: the forward's contraction is split so already, and
+    the gradient ``o^T dy`` is then computed a slice of rows on each rank
+    of that dim rather than whole on each, which `DTensor`, weighing
+    communication alone, picks otherwise."""
+    if not (isinstance(o, DTensor) and isinstance(w, DTensor) and ops.needs_grad(o, w)):
+        return o
+    mesh = o.device_mesh
+    placements = [Shard(2) if p == Replicate() and q == Replicate() and mesh.size(m) > 1
+                  and o.shape[2] % mesh.size(m) == 0 else p
+                  for m, (p, q) in enumerate(zip(o.placements, w.placements))]
+    if placements == list(o.placements):
+        return o
+    return o.redistribute(mesh, placements)
+
+
 def _repeat_heads(t: torch.Tensor, g: int) -> torch.Tensor:
     """(B, S, H_kv, D) -> (B, S, H_kv * g, D), kv head j at heads j*g ..
     j*g + g - 1."""
@@ -463,7 +482,8 @@ def attention(
         out = _attn_core(q, k, v, causal=causal and kv_source is None,
                          q_offset=start, kv_valid_len=kv_len, q_chunk=q_chunk,
                          allow_head_shard=cache is None)
-    y = merge_dims(_heads_split(out), 2, 3) @ merge_dims(p["wo"].to(x.dtype), 0, 1)
+    wo = merge_dims(p["wo"].to(x.dtype), 0, 1)
+    y = _contraction_split(merge_dims(_heads_split(out), 2, 3), wo) @ wo
     if "bo" in p:
         y = y + p["bo"].to(x.dtype)
     y = constrain(y, "batch", None, "residual")

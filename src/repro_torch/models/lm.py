@@ -24,8 +24,10 @@ which `DTensor` computes on vocabulary-sharded logits.
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDef, ModelConfig
@@ -99,6 +101,44 @@ def make_block_cache(cfg: ModelConfig, bd: BlockDef, batch: int, max_len: int,
     return cache
 
 
+def rounded_to(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype` (float32 or bfloat16, nearest, ties to
+    even; any other dtype keeps it), as a Python number: a product with it
+    rounds as one with the reference's ``jnp.asarray(value, dtype)`` does,
+    and saves no tensor for the backward pass, so a recomputed period
+    stops at its last product's inputs instead of recomputing that
+    product (torch.utils.checkpoint recomputes until every saved tensor
+    is back)."""
+    if dtype == torch.float32:
+        return struct.unpack("<f", struct.pack("<f", value))[0]
+    if dtype == torch.bfloat16:
+        bits = struct.unpack("<I", struct.pack("<f", value))[0]
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return struct.unpack("<f", struct.pack("<I", bits))[0]
+    return value
+
+
+def whole_along_d(h: torch.Tensor) -> torch.Tensor:
+    """A normed hidden state that feeds products (a block's input, the
+    final norm's output), under autograd whole along d on every rank (its
+    batch split as the rules split it). Not a `constrain` (the reference
+    has none here): the residual stream is split along d on the tensor
+    axis (``residual``), so each product of it would give a partial sum,
+    which `DTensor`, weighing communication alone, resolves by a
+    reduce-scatter onto the batch dim over the tensor axis. Where a rank
+    holds fewer rows than that axis has ranks (the 2 x 16 x 16 mesh's
+    train cells: 8 over 16) the split is uneven, and the backward pass's
+    flatten of it is a strided shard that `DTensor` plans for minutes a
+    product. Gathered first, every product is split by its output columns
+    instead. Inference keeps its layouts."""
+    rules = current_rules()
+    if not (isinstance(h, DTensor) and torch.is_grad_enabled() and h.requires_grad
+            and rules is not None and rules.mesh is not None):
+        return h
+    return h.redistribute(h.device_mesh,
+                          rules.sharding(("batch", None, None), tuple(h.shape)).placements)
+
+
 def block_fwd(
     p: dict,
     cfg: ModelConfig,
@@ -118,9 +158,9 @@ def block_fwd(
     else to its read-only `"cross"` cache, which it passes on unchanged."""
     _check_block(cfg, bd)
     new_cache: dict = {}
-    rm = torch.tensor(cfg.residual_multiplier, dtype=x.dtype)
+    rm = rounded_to(cfg.residual_multiplier, x.dtype)
 
-    h = L.apply_norm(p["norm1"], cfg, x)
+    h = whole_along_d(L.apply_norm(p["norm1"], cfg, x))
     if bd.mixer == "attn":
         attn_out, kv = L.attention(
             p["attn"], cfg, h,
@@ -151,7 +191,7 @@ def block_fwd(
     x = x + rm * attn_out
 
     if bd.cross_attn:
-        hc = L.apply_norm(p["norm_cross"], cfg, x)
+        hc = whole_along_d(L.apply_norm(p["norm_cross"], cfg, x))
         if enc_hidden is not None:
             cross_out, _ = L.attention(p["cross"], cfg, hc, start=start, causal=False,
                                        kv_source=enc_hidden, q_chunk=q_chunk)
@@ -164,7 +204,7 @@ def block_fwd(
             new_cache["cross"] = cache["cross"]
 
     if bd.ffn is not None:
-        h2 = L.apply_norm(p["norm2"], cfg, x)
+        h2 = whole_along_d(L.apply_norm(p["norm2"], cfg, x))
         ffn_out, aux = _ffn(p["ffn"], cfg, bd, h2)
         x = x + rm * ffn_out
     return x, new_cache, aux
@@ -368,7 +408,7 @@ def lm_hidden(
         q_chunk=q_chunk,
         remat=remat,
     )
-    return L.apply_norm(p["final_norm"], cfg, x), new_caches, aux
+    return whole_along_d(L.apply_norm(p["final_norm"], cfg, x)), new_caches, aux
 
 
 def logits_from_hidden(p: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _act
 from repro_torch.models.spec import ParamSpec
-from repro_torch.sharding.rules import constrain, merge_dims, replicate_like, split_dim
+from repro_torch.sharding.rules import (
+    constrain,
+    grad_in_layout,
+    merge_dims,
+    replicate_like,
+    split_dim,
+)
 
 NEG_INF = -1e30
 
@@ -110,7 +116,9 @@ def route(p: dict, cfg: ModelConfig,
     gates, renormalised to sum to 1, and experts, (B, S, k) each, the
     likelier first."""
     e, k = cfg.moe_padded_experts, cfg.moe_top_k
-    logits = x.float() @ p["w_router"].to(x.dtype).float()        # (B, S, E)
+    # The gradient stays split as the logits are, so the router's weight
+    # gradient is a slice of experts on each rank, not whole on every one.
+    logits = grad_in_layout(x.float() @ p["w_router"].to(x.dtype).float())   # (B, S, E)
     if e != cfg.moe_num_experts:
         # Padding experts (the reference's sharding alignment) never win.
         pad = replicate_like(torch.arange(e, device=x.device) >= cfg.moe_num_experts, logits)

@@ -5,7 +5,8 @@ chunked scan through `ops.ssd_scan`: the CUDA kernel for CUDA tensors, its
 plain version (`ssd_chunked`, re-exported here with `segsum` under the
 reference's names) for CPU tensors. The kernel is forward only, so a call
 that needs gradients (training) runs `ssd_chunked` itself, differentiable
-by autograd, as the JAX package's training does. A decode step (S == 1
+by autograd, as the JAX package's training does; on `DTensor`s rank by
+rank through `local_map`, as the kernel's entry runs. A decode step (S == 1
 with a cache) is the plain recurrence `ssd_decode_step`, as in the
 reference. Matmuls run in the activations' dtype (bf16) on fp32
 parameters cast at use; the scan, its state and the gated norm's
@@ -82,6 +83,21 @@ def _seq_whole(t: torch.Tensor) -> torch.Tensor:
     if placements == list(t.placements):
         return t
     return t.redistribute(t.device_mesh, placements)
+
+
+def _differentiable_scan(x, dt_a, b_proj, c_proj, chunk: int, init):
+    """The scan for a call that needs gradients: `ssd_chunked`, which
+    autograd differentiates (the kernel is forward only). `DTensor`s go
+    rank by rank through `local_map` on whole (batch, head) slices, as the
+    kernel's entry lays them out (`ops.ssd_on_shards`): each rank runs the
+    plain scan on its own slices, and no reshape of the scan meets a split
+    dim."""
+    def scan(x, dt_a, b_proj, c_proj, init=None):
+        return ssd_chunked(x, dt_a, b_proj, c_proj, chunk, initial_state=init)
+
+    if isinstance(x, DTensor):
+        return ops.ssd_on_shards(scan, "ssd_chunked", x, dt_a, b_proj, c_proj, init)
+    return scan(x, dt_a, b_proj, c_proj, init)
 
 
 # --------------------------------------------------------------------------- #
@@ -226,8 +242,7 @@ def mamba_block(
         init = cache.ssm if cache is not None else None
         x_scaled = x_scaled.to(dt)
         if ops.needs_grad(x_scaled, dt_a, bg, cg):
-            y_full, new_ssm = ssd_chunked(x_scaled, dt_a, bg, cg, cfg.ssm_chunk,
-                                          initial_state=init)
+            y_full, new_ssm = _differentiable_scan(x_scaled, dt_a, bg, cg, cfg.ssm_chunk, init)
         else:
             y_full, new_ssm = ops.ssd_scan(x_scaled, dt_a, bg, cg, chunk=cfg.ssm_chunk,
                                            initial_state=init)

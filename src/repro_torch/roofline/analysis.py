@@ -96,11 +96,14 @@ def analyze_graph(
     chips: int,
     n_active_params: int,
     tokens: int,
+    alias_bytes: int = 0,
     hw: dict = HW_H100,
 ) -> RooflineReport:
     """The counterpart of the reference's `analyze_compiled`: the terms of
     one rank's traced graph `gm` run on its ``meta`` local shards
-    `inputs` (`graph_parse.analyze_graph_module`)."""
+    `inputs` (`graph_parse.analyze_graph_module`). `alias_bytes` is the
+    bytes of the inputs donated to the step (a train cell's state), which
+    the reference's memory analysis reports as aliased."""
     from repro_torch.roofline.graph_parse import analyze_graph_module
 
     parsed = analyze_graph_module(gm, inputs)
@@ -124,7 +127,7 @@ def analyze_graph(
     total_flops = parsed.flops * chips
     useful = mf / total_flops if total_flops else 0.0
 
-    memory_stats = dict(parsed.memory_stats)
+    memory_stats = dict(parsed.memory_stats, alias_bytes=int(alias_bytes))
     memory_stats["while_trip_counts"] = parsed.while_trip_counts
 
     return RooflineReport(

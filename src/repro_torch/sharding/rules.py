@@ -214,10 +214,16 @@ def merge_dims(t: torch.Tensor, start: int, end: int) -> torch.Tensor:
     """`t.flatten(start, end)`. For a `DTensor` its gradient is brought back
     to this layout before the backward pass splits the dims again, which
     an unevenly sharded gradient would not allow."""
-    out = t.flatten(start, end)
-    if isinstance(out, DTensor) and out.requires_grad:
-        out = out.redistribute(out.device_mesh, out.placements)
-    return out
+    return grad_in_layout(t.flatten(start, end))
+
+
+def grad_in_layout(t: torch.Tensor) -> torch.Tensor:
+    """`t`; a `DTensor` that requires grad gets its gradient laid out as
+    `t` is before the backward pass goes on (a redistribute to its own
+    placements: nothing in the forward pass)."""
+    if isinstance(t, DTensor) and t.requires_grad:
+        return t.redistribute(t.device_mesh, t.placements)
+    return t
 
 
 def local_extent(x: DTensor, dim: int) -> tuple[int, int]:

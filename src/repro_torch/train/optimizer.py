@@ -68,7 +68,8 @@ def init_state(params, cfg: AdamWConfig | None = None) -> AdamWState:
     device = leaves[0].device if leaves else None
 
     def zeros(p: torch.Tensor) -> torch.Tensor:
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+        # Like the parameter: a `DTensor` parameter's moments take its layout.
+        return torch.zeros_like(p, dtype=mdt)
 
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),

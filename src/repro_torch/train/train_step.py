@@ -70,13 +70,36 @@ class StepConfig:
 
 
 def _split_batch(batch: dict, n: int) -> list[dict]:
-    """`n` microbatches along B, in order (the reference's reshape to
-    (n, B // n, ...))."""
+    """`n` microbatches along B. A plain tensor splits in order (the
+    reference's reshape to (n, B // n, ...)); a `DTensor` splits each
+    rank's local rows so, and keeps its layout: microbatch i holds every
+    rank's i-th n-th of its rows. Splitting the global rows instead would
+    cut a dim sharded over the batch's ranks at other than their bounds."""
     for x in batch.values():
-        if x.shape[0] % n:
-            raise ValueError(f"batch of {x.shape[0]} rows does not split into {n} microbatches")
-    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
-            for i in range(n)]
+        rows = x.to_local().shape[0] if isinstance(x, DTensor) else x.shape[0]
+        if rows % n:
+            raise ValueError(f"batch of {rows} rows (on this rank) does not split into "
+                             f"{n} microbatches")
+
+    def split(x: torch.Tensor) -> list[torch.Tensor]:
+        if not isinstance(x, DTensor):
+            return list(x.reshape(n, x.shape[0] // n, *x.shape[1:]).unbind(0))
+        local = x.to_local()
+        shape = (x.shape[0] // n, *x.shape[1:])
+        return [DTensor.from_local(part, x.device_mesh, x.placements, run_check=False,
+                                   shape=shape, stride=_contiguous_strides(shape))
+                for part in local.reshape(n, local.shape[0] // n, *local.shape[1:]).unbind(0)]
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _contiguous_strides(shape: tuple) -> tuple:
+    strides, acc = [], 1
+    for size in reversed(shape):
+        strides.append(acc)
+        acc *= size
+    return tuple(reversed(strides))
 
 
 def build_train_step(model: Model, opt_cfg: AdamWConfig,
@@ -101,13 +124,16 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig,
         if step_cfg.microbatches <= 1:
             loss, grads = loss_and_grads(state.params, batch)
         else:
-            loss = torch.zeros((), dtype=torch.float32, device=batch["inputs"].device)
-            grads = tree.map_leaves(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                          device=p.device), state.params)
+            # The reference adds each microbatch to fp32 zeros: the first
+            # sum is that microbatch itself, so it starts the running sums.
+            loss = grads = None
             for micro in _split_batch(batch, step_cfg.microbatches):
                 loss_i, g_i = loss_and_grads(state.params, micro)
-                loss = loss + loss_i
-                grads = tree.map_leaves(lambda a, b: a + b.float(), grads, g_i)
+                if loss is None:
+                    loss, grads = loss_i.float(), tree.map_leaves(lambda g: g.float(), g_i)
+                else:
+                    loss = loss + loss_i
+                    grads = tree.map_leaves(lambda a, b: a + b.float(), grads, g_i)
             inv = 1.0 / step_cfg.microbatches
             loss = loss * inv
             grads = tree.map_leaves(lambda g: g * inv, grads)

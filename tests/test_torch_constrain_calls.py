@@ -148,7 +148,8 @@ def test_recompute_in_the_backward_pass_lays_out_as_the_forward(monkeypatch, fak
     """`Model.loss` remats each period: the backward pass recomputes it,
     on the card on autograd's own thread, where the ambient rules (per
     thread) are not set. Run here outside `use_rules`, the recompute must
-    make the forward period's layout calls again (head mode included)."""
+    make the forward period's layout calls again (head mode included), up
+    to its last product, which it need not recompute."""
     fake_group(8)
     cfg = get_config("olmo-1b").reduced()
     model = make_model(cfg)
@@ -168,4 +169,9 @@ def test_recompute_in_the_backward_pass_lays_out_as_the_forward(monkeypatch, fak
     torch.autograd.grad(loss, tree.flatten(live))
     monkeypatch.undo()
     assert ("batch", None, "heads", None) in forward
-    assert record == forward[1:]      # the period's calls, not lm_hidden's first
+    # The period's calls, not lm_hidden's first. The recompute stops once
+    # every tensor the backward saved is back: before the period's last
+    # product (the MLP's down projection, whose output nothing saves), so
+    # without that product's layout call.
+    assert forward[-1] == ("batch", None, "residual")
+    assert record == forward[1:-1]

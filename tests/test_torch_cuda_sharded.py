@@ -1,7 +1,11 @@
 """The kernels' route on a mesh, on the card: flash attention and the SSD
 scan called with `DTensor`s on a one-rank NCCL mesh go through `local_map`
 to the CUDA kernels (one launch each) and match their plain versions; a
-split over one rank counts as whole.
+split over one rank counts as whole. Training on the mesh: the scan that
+needs gradients runs `ssd_chunked` through `local_map` (no launch) with
+the plain path's values and gradients, the kernel's entry still refuses a
+`DTensor` that needs grad, and a reduced olmo-1b train step through the
+`DTensor` path equals the plain step at 1 and 2 microbatches.
 
 Every test here needs an NVIDIA GPU and skips without one; the file imports
 no JAX, so it runs on a machine that has only PyTorch:
@@ -98,3 +102,91 @@ def test_a_split_over_one_rank_counts_as_whole(nccl):
                                   place(q, mesh, Shard(0), Shard(2)),
                                   place(q, mesh, Shard(0), Shard(2)))
     assert fa.launches == before + 1 and out.shape == q.shape
+
+
+def test_training_scan_through_local_map(nccl):
+    """`models.ssd._differentiable_scan` on `DTensor`s that need grad (fp32,
+    mamba2-1.3b's head and state widths, batch 2 of 512): `ssd_chunked` on
+    the local shards, no kernel launch, y, the final state and the
+    gradients of every input equal to the plain path's on the card."""
+    from repro_torch.models import ssd as S
+
+    mesh = make_debug_mesh(1, 1)
+    gen = torch.Generator(device=nccl).manual_seed(2)
+    x = torch.randn(2, 512, 64, 64, device=nccl, generator=gen) * 0.1
+    dt_a = -torch.rand(2, 512, 64, device=nccl, generator=gen) * 0.1
+    b, c = (torch.randn(2, 512, 1, 128, device=nccl, generator=gen) * 0.1 for _ in range(2))
+    layout = [(Shard(0), Shard(2)), (Shard(0), Shard(2)), (Shard(0), Replicate()),
+              (Shard(0), Replicate())]
+
+    def run(inputs):
+        live = [t.detach().requires_grad_(True) for t in inputs]
+        y, h = S._differentiable_scan(*live, 256, None)
+        full = [t.full_tensor() if isinstance(t, DTensor) else t for t in (y, h)]
+        grads = torch.autograd.grad(y.sum() + (h * h).sum(), live)
+        return full + [g.full_tensor() if isinstance(g, DTensor) else g for g in grads]
+
+    before = ssd.launches
+    got = run([place(t, mesh, *pl) for t, pl in zip((x, dt_a, b, c), layout)])
+    want = run([x, dt_a, b, c])
+    torch.cuda.synchronize()
+    assert ssd.launches == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL[torch.float32], atol=TOL[torch.float32])
+
+
+def test_entry_refuses_a_dtensor_that_needs_grad(nccl):
+    """No fallback: `ops.ssd_scan` on a CUDA `DTensor` that needs grad goes
+    through `local_map` to the kernel's entry, which refuses it."""
+    mesh = make_debug_mesh(1, 1)
+    x = torch.randn(1, 256, 4, 64, device=nccl, requires_grad=True)
+    dt_a = -torch.rand(1, 256, 4, device=nccl)
+    b = torch.randn(1, 256, 1, 64, device=nccl)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.ssd_scan(place(x, mesh, Shard(0), Shard(2)), place(dt_a, mesh, Shard(0), Shard(2)),
+                     place(b, mesh, Shard(0), Replicate()), place(b, mesh, Shard(0), Replicate()),
+                     chunk=256)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_dtensor_equals_plain(nccl, microbatches):
+    """A reduced olmo-1b `build_train_step` step (fp32 activations, remat)
+    laid out by TRAIN_RULES on the one-rank mesh against the plain step
+    from the same weights: the metrics, every moment and every update."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.ft.elastic import reshard_params
+    from repro_torch.models import layers as L
+    from repro_torch.models import make_model
+    from repro_torch.sharding.rules import TRAIN_RULES, ShardingRules, use_rules
+    from repro_torch.train import AdamWConfig, StepConfig, TrainState, build_train_step, init_state
+
+    model = make_model(get_config("olmo-1b").reduced())
+    params = model.init(0, device=nccl)
+    ids = torch.randint(0, model.cfg.vocab_size, (2 * microbatches, 65), device=nccl,
+                        generator=torch.Generator(device=nccl).manual_seed(3))
+    rules = ShardingRules(make_debug_mesh(1, 1), dict(TRAIN_RULES))
+
+    def step(rules):
+        p = params if rules is None else reshard_params(params, model.spec(), rules)
+        batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:]}
+        if rules is not None:
+            batch = {k: place(v, rules.mesh, Shard(0), Replicate()) for k, v in batch.items()}
+        with use_rules(rules):
+            new, metrics = build_train_step(model, AdamWConfig(), StepConfig(
+                microbatches=microbatches))(TrainState(p, init_state(p)), batch)
+
+        def full(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        return ([full(v) for v in metrics.values()]
+                + [full(a) - full(b) for a, b in zip(tree.flatten(new.params), tree.flatten(p))]
+                + [full(t) for t in tree.flatten(new.opt)])
+
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        got, want = step(rules), step(None)
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-6)

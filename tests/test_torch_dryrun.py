@@ -8,14 +8,20 @@ JAX package's, on the CPU, on torch's ``fake`` process groups.
   tests/test_torch_sharding.py builds it);
 - the graph parser's conventions on hand-built graphs (the counterpart of
   tests/test_sharding_and_roofline.py's TestHloParser);
-- `run_cells`' records (ok, a skipped train cell, an error) and their keys
-  and file names, and the report's tables from them;
+- `run_cells`' records (ok for prefill, decode and train, a skipped
+  long_500k cell, an error) and their keys and file names, and the
+  report's tables from them;
+- the train cells' own pieces: a `NamedTuple` state through `_leaves` /
+  `_rebuild`, ``alias_bytes`` (the donated state's local bytes; 0 for a
+  prefill), ``--microbatches 2`` counting the FLOPs of 1, and
+  ``--moments-dtype bfloat16`` halving the moments' argument bytes;
 - one cell against the reference's own `lower_cell`, run in a subprocess
   that forces 512 host devices before importing JAX: smollm-135m at full
-  width cut to 2 layers (registered on both sides), prefill_32k on the
-  16 x 16 mesh. `model_flops` must be equal and the per-chip product
-  FLOPs within 10% of the reference's dots (the limit and its reasoning
-  are in PERF.md, §6, under the dry-run slice).
+  width cut to 2 layers (registered on both sides), prefill_32k and
+  train_4k on the 16 x 16 mesh. `model_flops` must be equal and the
+  per-chip product FLOPs within 10% of the reference's dots (the limit
+  and its reasoning are in PERF.md, §6, under the dry-run slice and,
+  for the train cell, under the train cells' slice).
 
 - olmo-1b's full-size decode_32k cell against the hand count of
   tests/test_torch_dryrun_cells.py, which holds the prefill_32k cell.
@@ -28,7 +34,6 @@ import json
 import os
 import subprocess
 import sys
-import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +50,7 @@ from repro.configs import get_config as jax_get_config
 from repro.launch import specs as jax_specs
 from repro.models import make_model as jax_make_model
 from repro.sharding import rules as JR
+from repro_torch import tree
 from repro_torch.configs import SHAPES, base, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_production_mesh
@@ -54,6 +60,7 @@ from repro_torch.roofline import report
 from repro_torch.roofline.analysis import HW_H100, RooflineReport, model_flops
 from repro_torch.roofline.graph_parse import analyze_graph_module
 from repro_torch.sharding.rules import DECODE_RULES, TRAIN_RULES, ShardingRules
+from dryrun_reference_compare import REFERENCE
 from test_torch_dryrun_cells import check as check_hand_count
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -237,16 +244,18 @@ def test_run_cells_records_and_artifacts(tiny_archs, tmp_path):
                             meshes=("pod16x16",), out_dir=str(out))
     status = {(r["arch"], r["shape"]): r["status"] for r in recs}
     assert status == {(ok, "prefill_32k"): "ok", (ok, "decode_32k"): "ok",
-                      (ok, "train_4k"): "skipped", (ok, "long_500k"): "skipped",
+                      (ok, "train_4k"): "ok", (ok, "long_500k"): "skipped",
                       (bad, "prefill_32k"): "error"}
     assert not dist.is_initialized()
     by_shape = {r["shape"]: r for r in recs if r["arch"] == ok}
-    assert by_shape["train_4k"]["reason"] == dryrun.TRAIN_SKIP_REASON
-    assert "next slice" in by_shape["train_4k"]["reason"]
     assert by_shape["long_500k"]["reason"].startswith("long_500k requires sub-quadratic")
     err = next(r for r in recs if r["arch"] == bad)
     assert err["error"].startswith("NotImplementedError") and "traceback" in err
-    for shape in ("prefill_32k", "decode_32k"):
+    train = by_shape["train_4k"]
+    assert train["kind"] == "train" and train["microbatches"] == 1
+    assert train["memory_stats"]["alias_bytes"] > 0
+    assert train["model_flops_total"] == 6 * train["active_param_count"] * 256 * 4096
+    for shape in ("prefill_32k", "decode_32k", "train_4k"):
         rec = by_shape[shape]
         assert REPORT_KEYS | {"status", "wall_s"} == set(rec)
         assert rec["compile_s"] == 0.0 and rec["lower_s"] > 0
@@ -263,6 +272,7 @@ def test_run_cells_records_and_artifacts(tiny_archs, tmp_path):
     assert "| ok |" in table and "SKIP" in table and "**ERROR**" in table
     roof = report.roofline_table(on_disk, "pod16x16")
     assert f"| {ok} | prefill_32k |" in roof and f"| {ok} | decode_32k |" in roof
+    assert f"| {ok} | train_4k |" in roof
 
 
 @pytest.mark.parametrize("shape_name", ["prefill_32k", "decode_32k"])
@@ -297,12 +307,105 @@ def test_collective_counts_agree_with_comm_debug_mode(tiny_archs, fake_group, sh
 
 
 def test_lower_cell_refuses_train_and_a_live_group(tiny_archs, fake_group):
+    """A train cell traces now (the whole step: the graph holds the
+    backward's products and AdamW's update of every leaf); a live process
+    group is still refused."""
     ok, _ = tiny_archs
-    with pytest.raises(NotImplementedError, match="next slice"):
-        dryrun.lower_cell(ok, "train_4k")
+    rec, gm = dryrun.lower_cell(ok, "train_4k", verbose=False)
+    assert rec["kind"] == "train" and rec["flops_per_chip"] > 0 and rec["chips"] == 256
+    assert not dist.is_initialized()
+    outputs = next(n for n in gm.graph.nodes if n.op == "output").args[0]
+    # The new state (each parameter and its two moments, the step) and the
+    # three metrics.
+    n_params = len(tree.flatten(make_model(get_config(ok)).spec()))
+    assert len(outputs) == 3 * n_params + 1 + 3
     fake_group(4)
     with pytest.raises(RuntimeError, match="process group is live"):
         dryrun.lower_cell(ok, "prefill_32k")
+
+
+def test_named_tuples_round_trip_through_leaves_and_rebuild():
+    """The train state is NamedTuples (`TrainState`, `AdamWState`): their
+    tensors come out in order and a rebuild gives the same types back,
+    fields by name."""
+    from repro_torch.train import AdamWState, TrainState
+
+    t = [torch.full((2,), float(i)) for i in range(5)]
+    state = TrainState(params={"a": t[0], "b": {"c": t[1]}},
+                       opt=AdamWState(step=t[2], m={"a": t[3]}, v=[t[4]]))
+    leaves = dryrun._leaves(state, [])
+    assert [int(x[0]) for x in leaves] == [0, 1, 2, 3, 4]
+    back = dryrun._rebuild(state, iter([x + 10 for x in leaves]))
+    assert type(back) is TrainState and type(back.opt) is AdamWState
+    assert float(back.params["b"]["c"][0]) == 11 and float(back.opt.step[0]) == 12
+    assert isinstance(back.opt.v, list) and float(back.opt.v[0][0]) == 14
+
+
+def _local_state_bytes(arch: str, moments_dtype: str) -> int:
+    """The rank's share of `abstract_train_state`'s bytes on the 16 x 16
+    mesh (a fake group of its own)."""
+    from repro_torch.train import AdamWConfig, abstract_train_state
+
+    dryrun.start_fake_group(256)
+    try:
+        _, rules = dryrun._mesh_and_rules("train", False)
+        state = abstract_train_state(make_model(get_config(arch)), rules,
+                                     opt_cfg=AdamWConfig(moments_dtype=moments_dtype))
+        return sum(t.to_local().numel() * t.element_size() if isinstance(t, DTensor)
+                   else t.numel() * t.element_size() for t in dryrun._leaves(state, []))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def tiny_train_cells(tiny_archs):
+    """The tiny config's train_4k cell at the defaults, at 2 microbatches
+    and with bf16 moments, and its prefill_32k cell."""
+    ok, _ = tiny_archs
+    out = {}
+    for key, kw in (("default", {}), ("micro2", {"microbatches": 2}),
+                    ("bf16", {"moments_dtype": "bfloat16"})):
+        out[key], _ = dryrun.lower_cell(ok, "train_4k", verbose=False, **kw)
+    out["prefill"], _ = dryrun.lower_cell(ok, "prefill_32k", verbose=False)
+    return out
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_alias_bytes_are_the_donated_state(tiny_archs, tiny_train_cells, moments):
+    """The reference donates the train state to its step: a train cell's
+    ``alias_bytes`` is the rank's share of the state's bytes; a prefill
+    cell donates nothing."""
+    ok, _ = tiny_archs
+    rec = tiny_train_cells["default" if moments == "float32" else "bf16"]
+    assert rec["memory_stats"]["alias_bytes"] == _local_state_bytes(ok, moments)
+    assert tiny_train_cells["prefill"]["memory_stats"]["alias_bytes"] == 0
+
+
+def test_microbatches_count_the_same_flops(tiny_train_cells):
+    """Two microbatches run the same products on half the rows each: the
+    per-chip FLOPs equal one microbatch's. Each microbatch gathers the
+    weights and reduces its gradients again, while its activations'
+    collectives halve: collective bytes grow by no more than one
+    all-reduce of the whole fp32 gradient (2 x 4 bytes a parameter), the
+    exchange the reference repeats per microbatch."""
+    one, two = tiny_train_cells["default"], tiny_train_cells["micro2"]
+    assert two["microbatches"] == 2
+    assert two["flops_per_chip"] == one["flops_per_chip"]
+    assert two["model_flops_total"] == one["model_flops_total"]
+    grow = two["coll_bytes_per_chip"] - one["coll_bytes_per_chip"]
+    assert grow <= 2 * 4 * one["param_count"], (grow, one["param_count"])
+
+
+def test_bf16_moments_halve_the_moments_argument_bytes(tiny_train_cells):
+    """``--moments-dtype bfloat16`` stores both moments in 2 bytes: the
+    arguments lose half the fp32 moments' bytes (2 x the parameters'), and
+    the products are unchanged."""
+    f32, bf16 = tiny_train_cells["default"], tiny_train_cells["bf16"]
+    params = (f32["memory_stats"]["alias_bytes"] - 4) / 3      # fp32 params, m, v; step
+    moments = 2 * params
+    assert f32["memory_stats"]["argument_bytes"] - bf16["memory_stats"]["argument_bytes"] \
+        == moments / 2
+    assert bf16["flops_per_chip"] == f32["flops_per_chip"]
 
 
 def test_main_writes_the_artifact(tiny_archs, tmp_path):
@@ -316,36 +419,44 @@ def test_main_writes_the_artifact(tiny_archs, tmp_path):
 # --------------------------------------------------------------------------- #
 # One cell against the reference's lower_cell
 # --------------------------------------------------------------------------- #
-REFERENCE_CELL = textwrap.dedent("""
-    import os
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
-    import dataclasses, json
-    from repro.configs import base
-    from repro.launch.dryrun import lower_cell
-    from repro.roofline.hlo_parse import analyze_hlo
-    cfg = dataclasses.replace(base.get_config("smollm-135m"), num_layers=2,
-                              name="smollm-135m-2l")
-    base.register(cfg)
-    rec, compiled = lower_cell(cfg.name, "prefill_32k", verbose=False)
-    print(json.dumps({"model_flops": rec["model_flops_total"],
-                      "dot_flops": analyze_hlo(compiled.as_text()).flops}))
-""")
 FLOPS_LIMIT = 0.10      # PERF.md §6, written there before the first comparison
 
 
-def test_cell_matches_reference_lower_cell():
+def compare_with_reference(shape_name: str) -> tuple[dict, dict]:
+    """smollm-135m cut to 2 layers: (the port's record, the reference's
+    model FLOPs and per-chip dot FLOPs) for one cell on the 16 x 16 mesh,
+    the reference run by tests/dryrun_reference_compare.py's script."""
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"), "JAX_PLATFORMS": "cpu"}
-    res = subprocess.run([sys.executable, "-c", REFERENCE_CELL], capture_output=True,
-                         text=True, env=env, cwd=REPO, timeout=300)
+    res = subprocess.run([sys.executable, "-c", REFERENCE, "smollm-135m", shape_name, "2", "1",
+                          "0"], capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     want = json.loads(res.stdout.strip().splitlines()[-1])
     cfg = dataclasses.replace(get_config("smollm-135m"), num_layers=2, name="smollm-135m-2l")
     if cfg.name not in base.all_configs():
         base.register(cfg)
-    got, _ = dryrun.lower_cell(cfg.name, "prefill_32k", verbose=False)
+    got, _ = dryrun.lower_cell(cfg.name, shape_name, verbose=False)
+    return got, want
+
+
+def test_cell_matches_reference_lower_cell():
+    got, want = compare_with_reference("prefill_32k")
     assert got["model_flops_total"] == want["model_flops"]
-    assert abs(got["flops_per_chip"] / want["dot_flops"] - 1) <= FLOPS_LIMIT, (
-        got["flops_per_chip"], want["dot_flops"])
+    assert abs(got["flops_per_chip"] / want["flops"] - 1) <= FLOPS_LIMIT, (
+        got["flops_per_chip"], want["flops"])
+
+
+def test_train_cell_matches_reference_lower_cell():
+    """The whole train step (loss, the remat recompute, the backward,
+    AdamW) against the reference's jitted step with its state donated: the
+    same model FLOPs, per-chip product FLOPs within the limit PERF.md §6
+    wrote for the train cells before the comparison (10%; measured equal
+    to the last digit), and the donated state's bytes aliased on both
+    sides."""
+    got, want = compare_with_reference("train_4k")
+    assert got["kind"] == "train"
+    assert got["model_flops_total"] == want["model_flops"]
+    assert abs(got["flops_per_chip"] / want["flops"] - 1) <= FLOPS_LIMIT, (
+        got["flops_per_chip"], want["flops"])
 
 
 def test_decode_32k_matches_the_hand_count():

@@ -110,6 +110,24 @@ def test_ops_refuse_a_sequence_sharded_layout(gloo_world, kernel):
     assert "sequence-sharded" in gloo_world["ops"][f"{kernel}_seq"]
 
 
+def test_split_batch_keeps_the_layout(gloo_world):
+    """`train_step._split_batch` of a batch split on ``data`` (16 rows over
+    4 ranks): each microbatch keeps the batch's placements, holds 8 rows,
+    and equals the plain split of every rank's own rows (rank r's i-th
+    half), taken in rank order."""
+    got = gloo_world["ops"]["split_batch"]
+    assert got["placements"] == [["S(0)", "R"], ["S(0)", "R"]]
+    assert got["shapes"] == [[8, 3], [8, 3]]
+    assert got["equal"] == [True, True]
+
+
+def check_training_scan(results: dict, arch: str, table: str) -> None:
+    """The sharded loss and gradients ran the training scan on local
+    shards only (through `local_map`), forward and remat recompute."""
+    calls = results[arch][table]["scan_calls"]
+    assert calls["DTensor"] == 0 and calls["local"] > 0, calls
+
+
 # --------------------------------------------------------------------------- #
 # In this process
 # --------------------------------------------------------------------------- #
@@ -219,3 +237,62 @@ def test_head_mode_attn_core_matches_reference(dtype):
     assert seen["ref"][0] == ("batch", None, "heads", None)
     tol = 1e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def test_training_scan_on_meta_runs_rank_by_rank(fake_group):
+    """The training scan (`models.ssd._differentiable_scan`, `ssd_chunked`
+    under autograd) on `DTensor`s over ``meta`` shards of a ``fake``
+    16 x 16 group, traced with its backward as the dry-run traces a train
+    cell: no op makes a strided shard, and one rank's products are those of
+    the plain scan and its backward at that rank's (batch, head) slices."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+    from torch.overrides import TorchFunctionMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.launch.dryrun import trace_per_rank
+    from repro_torch.models import ssd as S
+    from repro_torch.roofline.graph_parse import analyze_graph_module
+    from repro_torch.sharding.rules import NamedSharding
+
+    fake_group(256)
+    mesh = make_mesh_compat((16, 16), ("data", "model"), device_type="cpu")
+    rules = port_rules.ShardingRules(mesh, dict(port_rules.TRAIN_RULES))
+    batch, seq, heads, p, n, chunk = 32, 512, 64, 32, 64, 128
+
+    def meta(shape, *placements):
+        return abstract_tensor(shape, torch.float32, NamedSharding(mesh, placements))
+
+    args = (meta((batch, seq, heads, p), Shard(0), Shard(2)),
+            meta((batch, seq, heads), Shard(0), Shard(2)),
+            meta((batch, seq, 1, n), Shard(0), Replicate()),
+            meta((batch, seq, 1, n), Shard(0), Replicate()))
+
+    def step(*inputs):
+        live = [t.detach().requires_grad_(True) for t in inputs]
+        with torch.enable_grad():
+            y, state = S._differentiable_scan(*live, chunk, None)
+            return torch.autograd.grad(y.sum() + state.sum(), live)
+
+    strided = []
+
+    class Spy(TorchFunctionMode):
+        def __torch_function__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            strided.extend(t for t in torch.utils._pytree.tree_leaves(out)
+                           if isinstance(t, DTensor)
+                           and any(isinstance(pl, _StridedShard) for pl in t.placements))
+            return out
+
+    def spied(*inputs):
+        with Spy():
+            return step(*inputs)
+
+    gm, local = trace_per_rank(spied, args, rules)
+    assert strided == []
+    assert [tuple(t.shape) for t in local] == [(2, seq, 4, p), (2, seq, 4), (2, seq, 1, n),
+                                               (2, seq, 1, n)]
+    plain = make_fx(step, tracing_mode="fake")(*[torch.empty(t.shape, device="meta")
+                                                 for t in local])
+    want = analyze_graph_module(plain, [torch.empty(t.shape, device="meta") for t in local])
+    assert want.flops > 0
+    assert analyze_graph_module(gm, local).flops == want.flops

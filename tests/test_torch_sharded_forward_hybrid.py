@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import pytest
 
-from test_torch_sharded_forward import TABLES, check_world, run_world
+from test_torch_sharded_forward import TABLES, check_training_scan, check_world, run_world
 
 HYBRID_CONFIGS = ["jamba-1.5-large-398b"]
 
@@ -23,3 +23,11 @@ def gloo_world(tmp_path_factory):
 @pytest.mark.parametrize("arch", HYBRID_CONFIGS)
 def test_sharded_forward_equals_unsharded(gloo_world, arch, table):
     check_world(gloo_world, arch, table)
+
+
+@pytest.mark.parametrize("table", TABLES)
+@pytest.mark.parametrize("arch", HYBRID_CONFIGS)
+def test_training_scan_runs_on_local_shards(gloo_world, arch, table):
+    """The loss and gradients above (held to 1e-4 against unsharded) took
+    the training scan rank by rank through `local_map`."""
+    check_training_scan(gloo_world, arch, table)

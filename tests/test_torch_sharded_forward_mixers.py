@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import pytest
 
-from test_torch_sharded_forward import TABLES, check_world, run_world
+from test_torch_sharded_forward import TABLES, check_training_scan, check_world, run_world
 
 MIXER_CONFIGS = ["dbrx-132b", "granite-moe-3b-a800m", "mamba2-1.3b"]
 
@@ -24,3 +24,11 @@ def gloo_world(tmp_path_factory):
 @pytest.mark.parametrize("arch", MIXER_CONFIGS)
 def test_sharded_forward_equals_unsharded(gloo_world, arch, table):
     check_world(gloo_world, arch, table)
+
+
+@pytest.mark.parametrize("table", TABLES)
+@pytest.mark.parametrize("arch", ["mamba2-1.3b"])
+def test_training_scan_runs_on_local_shards(gloo_world, arch, table):
+    """The loss and gradients above (held to 1e-4 against unsharded) took
+    the training scan rank by rank through `local_map`."""
+    check_training_scan(gloo_world, arch, table)

@@ -10,11 +10,14 @@ in fp32 activations, its parameters laid out by each rules table
 steps. Each rank also runs the same calls with no mesh on the same
 weights and inputs. Rank 0 writes, per config and table, the largest
 difference of each result from the unsharded one, as max |a - b| and as
-max |a - b| / (1 + |b|); the test holds them to its limit. With ``--ops``
+max |a - b| / (1 + |b|); the test holds them to its limit; and how often
+the sharded loss and gradients ran the training scan (`ssd_chunked`) on
+local shards and on `DTensor`s. With ``--ops``
 the ranks also call the kernels' entries (`kernels.ops`) on `DTensor`s
 laid out whole (replicated; batch on ``data`` and heads on ``model``) and
 split on a sequence dim, and record each result's largest difference from
-the plain version on the logical inputs, or the error raised. The module
+the plain version on the logical inputs, or the error raised; and split a
+batch split on ``data`` into microbatches (`train_step._split_batch`). The module
 holds no test of its own: pytest imports it and collects nothing.
 """
 
@@ -79,7 +82,11 @@ def inputs(cfg) -> dict:
 
 
 def forward(model, params, data: dict, rules: ShardingRules | None) -> dict:
-    """Loss, gradients, prefill and decode logits, as logical tensors."""
+    """Loss, gradients, prefill and decode logits, as logical tensors; and
+    the training scan's calls during the loss and gradients, by whether
+    its input was a local shard or a `DTensor`."""
+    from repro_torch.models import ssd as S
+
     cfg = model.cfg
 
     def place(t):
@@ -97,11 +104,23 @@ def forward(model, params, data: dict, rules: ShardingRules | None) -> dict:
         live = T.map_leaves(lambda t: t.detach().requires_grad_(True), params)
         batch = (dict(enc_inputs=d["enc"], dec_ids=d["dec"], labels=d["labels"])
                  if cfg.is_encdec else dict(inputs=d["inputs"], labels=d["labels"]))
-        loss = model.loss(live, batch)
-        out["loss"] = full(loss)
-        leaves = T.flatten(live)
-        # A VLM's inputs are embeddings: its table gets no gradient (zero).
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        calls = {"local": 0, "DTensor": 0}
+        real = S.ssd_chunked
+
+        def counted(x, *args, **kw):
+            calls["DTensor" if isinstance(x, DTensor) else "local"] += 1
+            return real(x, *args, **kw)
+
+        S.ssd_chunked = counted
+        try:
+            loss = model.loss(live, batch)
+            out["loss"] = full(loss)
+            leaves = T.flatten(live)
+            # A VLM's inputs are embeddings: its table gets no gradient (zero).
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            S.ssd_chunked = real
+        out["scan_calls"] = calls
         out["grads"] = [torch.zeros(t.shape) if g is None else full(g)
                         for t, g in zip(leaves, grads)]
         with torch.no_grad():
@@ -167,6 +186,19 @@ def ops_checks(mesh) -> dict:
         out[f"ssd_{name}"] = [max(float((y.full_tensor() - want_y).abs().max()),
                                   float((h.full_tensor() - want_h).abs().max())),
                               [str(p) for p in y.placements]]
+    from repro_torch.train.train_step import _split_batch
+
+    rows = torch.arange(16 * 3).reshape(16, 3)
+    dt_rows = place(rows, [Shard(0), Replicate()])
+    micro = _split_batch({"x": dt_rows}, 2)
+    local = 16 // mesh.size(0)
+    want = [torch.cat([rows[r * local + i * local // 2:r * local + (i + 1) * local // 2]
+                       for r in range(mesh.size(0))]) for i in range(2)]
+    out["split_batch"] = {
+        "placements": [[str(p) for p in m["x"].placements] for m in micro],
+        "shapes": [list(m["x"].shape) for m in micro],
+        "equal": [bool(torch.equal(m["x"].full_tensor(), w)) for m, w in zip(micro, want)],
+    }
     for name, call in (
             ("flash_seq", lambda: ops.flash_attention(
                 place(q, [Shard(0), Replicate()]), place(k, [Shard(0), Shard(2)]),
@@ -211,6 +243,7 @@ def run(names: list[str], with_ops: bool) -> dict:
                 "prefill": diff(got["prefill"], want["prefill"]),
                 "decode": diff(got["decode"], want["decode"]),
                 "n_grads": len(got["grads"]),
+                "scan_calls": got["scan_calls"],
             }
         results[name]["seconds"] = time.perf_counter() - t0
     if with_ops:
