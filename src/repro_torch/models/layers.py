@@ -20,7 +20,13 @@ divides that axis (training, the encoder, cross-attention from source
 states), else k/v and the scores sharded on ``kv_seq``, the softmax's max
 and sum reduced across it. A prefill goes through the flash kernel only
 where it needs no score tensor laid out: no head mode, and ``kv_seq`` over
-one rank at most, so every rank holds whole (batch, head) slices.
+one rank at most, so every rank holds whole (batch, head) slices. Where
+`DTensor`, which weighs communication alone, would repeat work the
+reference's partitioner splits, the layout is steered where it happens: the
+vocab lookup never gathers the whole table (`_lookup`), a projection's FSDP
+weight is gathered over the batch's mesh axes (`_gathered_over_batch`), and
+at batch 1 the kv_seq mode's P·V is split by heads over the mesh axes that
+split nothing (`_pv_split_over_idle_axes`).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import local_map
@@ -40,6 +47,7 @@ from repro_torch.models.spec import Ax, ParamSpec
 from repro_torch.sharding.rules import (
     constrain,
     current_rules,
+    local_extent,
     merge_dims,
     replicate_like,
     split_dim,
@@ -135,23 +143,97 @@ def embedding_spec(cfg: ModelConfig) -> dict:
 
 
 def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table[ids]. A `DTensor` table is gathered whole and each rank looks
-    up its own ids (laid out as the ids, the model dim whole); the table's
-    gradient is the sum of the ranks' partial ones. `DTensor`'s own
-    strategies for an index into a sharded table are not in every release
-    (torch 2.11 has none for the backward's ``index_add``)."""
+    """table[ids]. A `DTensor` table (vocab rows on the model axis, d on the
+    data axes) is looked up one of two ways, whichever moves fewer bytes,
+    as the reference's partitioner weighs them:
+      * where it lies (`_sharded_lookup`): the ids gathered and the looked-
+        up rows' partial sums reduced, a few KB for a decode step;
+      * by columns: the table relaid whole along its rows and split along d
+        where its rows were split (gathered over the data axes, swapped
+        between dims over the model axis: 1/16 of it a rank), each rank
+        looking up its own ids in its own columns, which is the residual
+        stream's layout; a prefill's or a training batch's activations
+        would move more than that. Where no such split is (one rank on
+        those axes) or d does not divide it, the lookup is in place.
+    The table's gradient there is the sum of the ranks' partial ones.
+    `DTensor`'s own strategies for an index into a sharded table are not in
+    every release (torch 2.11 has none for the backward's ``index_add``),
+    so both ways index local shards through `local_map`."""
     if not isinstance(table, DTensor):
         return table[ids]
     mesh = table.device_mesh
     ids = replicate_like(ids, table)
-    whole = [Replicate()] * mesh.ndim
-    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in ids.placements]
-    out = [Shard(p.dim % ids.ndim) if isinstance(p, Shard) else Replicate()
-           for p in ids.placements]
+    cols = [Shard(1) if isinstance(t, Shard) and t.dim == 0 and not isinstance(p, Shard)
+            else Replicate() for t, p in zip(table.placements, ids.placements)]
+    ways = math.prod(mesh.size(m) for m, c in enumerate(cols) if c != Replicate())
+    moved_by_ids = ids.numel() * (ids.element_size() + 2 * table.shape[1] * table.element_size())
+    if (ways == 1 or table.shape[1] % ways
+            or moved_by_ids < table.numel() * table.element_size() / ways):
+        return _sharded_lookup(table, ids)
+    # The mesh dims that go whole first (an all-gather of a slice), then
+    # the rows' split swapped for the columns'.
+    relaid = table.redistribute(mesh, [c if c == Replicate() else t
+                                       for t, c in zip(table.placements, cols)])
+    for m, c in enumerate(cols):
+        if c != Replicate():
+            relaid = _rows_to_columns(relaid, m)
+    grad = [Partial() if isinstance(p, Shard) else c for p, c in zip(ids.placements, cols)]
+    out = [Shard(p.dim % ids.ndim) if isinstance(p, Shard) else Shard(ids.ndim) if c != Replicate()
+           else Replicate() for p, c in zip(ids.placements, cols)]
     return local_map(lambda t, i: t[i], out_placements=out,
-                     in_placements=(whole, ids.placements),
+                     in_placements=(cols, ids.placements),
                      in_grad_placements=(grad, ids.placements),
-                     device_mesh=mesh)(table.redistribute(mesh, whole), ids)
+                     device_mesh=mesh)(relaid, ids)
+
+
+def _rows_to_columns(table: DTensor, m: int) -> DTensor:
+    """`table` split along its rows on mesh dim `m` as the same split along
+    its columns, in one all-to-all over that dim: each rank sends every
+    other one the columns it will hold of its rows. `DTensor` does this
+    itself on a CUDA mesh; on a CPU mesh (gloo, and the dry-run's fake
+    groups) it gathers the whole table and keeps a slice."""
+    mesh, n = table.device_mesh, table.device_mesh.size(m)
+
+    def swap(t: torch.Tensor) -> torch.Tensor:
+        rows, d = t.shape
+        blocks = t.reshape(rows, n, d // n).transpose(0, 1).reshape(n * rows, d // n)
+        return funcol.wait_tensor(funcol.all_to_all_single_autograd(blocks, None, None,
+                                                                    (mesh, m)))
+
+    out = [Shard(1) if k == m else p for k, p in enumerate(table.placements)]
+    return local_map(swap, out_placements=out, in_placements=(table.placements,),
+                     device_mesh=mesh)(table)
+
+
+def _sharded_lookup(table: DTensor, ids: DTensor) -> DTensor:
+    """table[ids] with the table left where it lies: the ids are made whole
+    on every mesh dim that splits the table, and each rank looks them up in
+    its own rows, zeros for an id outside them. The output is split along
+    d where the table's columns are, a partial sum over the mesh dims that
+    split its rows, and laid out as the ids elsewhere; the caller's layout
+    reduces it. The gradient is each rank's scatter-add of its own ids into
+    its own rows, on its local shard: no `DTensor` ``index_add``; a partial
+    sum over the mesh dims that split the ids and not the table."""
+    mesh = table.device_mesh
+    ids = ids.redistribute(mesh, [Replicate() if isinstance(t, Shard) else p
+                                  for t, p in zip(table.placements, ids.placements)])
+    out = [Partial() if isinstance(t, Shard) and t.dim == 0
+           else Shard(ids.ndim) if isinstance(t, Shard)
+           else Shard(p.dim % ids.ndim) if isinstance(p, Shard) else Replicate()
+           for t, p in zip(table.placements, ids.placements)]
+    grad = [Partial() if t == Replicate() and isinstance(p, Shard) else t
+            for t, p in zip(table.placements, ids.placements)]
+    first, rows = local_extent(table, 0)
+
+    def lookup(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+        j = i - first
+        mine = (j >= 0) & (j < rows)
+        return torch.where(mine[..., None], t[j.clamp(0, rows - 1)], 0.0)
+
+    return local_map(lookup, out_placements=out,
+                     in_placements=(table.placements, ids.placements),
+                     in_grad_placements=(grad, ids.placements),
+                     device_mesh=mesh)(table, ids)
 
 
 def embed_tokens(p: dict, cfg: ModelConfig, ids: torch.Tensor) -> torch.Tensor:
@@ -304,6 +386,65 @@ def _softmax(s: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def _pv_split_over_idle_axes(pm: torch.Tensor, vt: torch.Tensor, g: int) -> torch.Tensor:
+    """The kv_seq mode's ``pm @ vt``: probabilities (B, H_kv, C * g, S_k)
+    (chunk rows outer, groups inner) times values (B, H_kv, S_k, D), in
+    (B, H_kv, C * g, D). Where a mesh dim of more than one rank splits
+    neither (the data axis at batch 1, long_500k's decode), its ranks each
+    compute the product for their own slice of the H_kv * g query heads and
+    the slices are gathered after, as the reference's partitioner splits
+    the output there; otherwise every rank of that axis computes it whole
+    (or, where `DTensor` split the probabilities' kv heads on its own, some
+    ranks of it repeat each other's). Not a `constrain` (the reference has
+    none here). Serving only: a call that needs gradients takes the plain
+    product."""
+    if not (isinstance(pm, DTensor) and isinstance(vt, DTensor)) or ops.needs_grad(pm, vt):
+        return pm @ vt
+    mesh = pm.device_mesh
+    hkv, cg = pm.shape[1], pm.shape[2]
+    heads = hkv * g
+    idle = [m for m, q in enumerate(vt.placements) if q == Replicate() and mesh.size(m) > 1]
+    n = math.prod(mesh.size(m) for m in idle)
+    per = heads // n if idle and heads % n == 0 else 0
+    # A rank's heads are some groups of one kv head, or whole kv heads.
+    if not per or (g % per if per < g else per % g):
+        return pm @ vt
+    # Probabilities `DTensor` split there on its own are gathered first
+    # (one query row a step: small), so that the heads split evenly.
+    pm = pm.redistribute(mesh, [Replicate() if m in idle else p
+                                for m, p in enumerate(pm.placements)])
+    out = []
+    for m, (p, q) in enumerate(zip(pm.placements, vt.placements)):
+        if m in idle:
+            out.append(Shard(1))
+        elif p == q == Shard(0):
+            out.append(p)
+        elif p == Shard(3) and q == Shard(2):
+            out.append(Partial())
+        else:
+            return pm @ vt
+    coord = mesh.get_coordinate()
+    rank = 0
+    for m in idle:                      # the idle axes' ranks, mesh-major
+        rank = rank * mesh.size(m) + coord[m]
+    kvs, gs = max(1, per // g), min(g, per)
+    j0, g0 = rank * per // g, rank * per % g
+    c = cg // g
+
+    def product(pl: torch.Tensor, vl: torch.Tensor) -> torch.Tensor:
+        """This rank's heads (head h reads kv head h // g), (B, per, C, D):
+        slices of the probabilities, views of the values."""
+        pl = pl.unflatten(2, (c, g)).transpose(2, 3)[:, j0:j0 + kvs, g0:g0 + gs]
+        o = pl.flatten(2, 3) @ vl[:, j0:j0 + kvs]                     # (B, kvs, gs * C, D)
+        return o.unflatten(2, (gs, c)).flatten(1, 2)
+
+    o = local_map(product, out_placements=out, in_placements=(pm.placements, vt.placements),
+                  device_mesh=mesh)(pm, vt)
+    o = o.redistribute(mesh, [Replicate() if m in idle else p for m, p in enumerate(o.placements)])
+    o = split_dim(o, 1, (hkv, g)).transpose(2, 3)                      # (B, H_kv, C, g, D)
+    return merge_dims(o, 2, 3)
+
+
 def _attn_core(
     q: torch.Tensor,        # (B, S_q, H_q, D_h)
     k: torch.Tensor,        # (B, S_k, H_kv, D_h)
@@ -378,7 +519,7 @@ def _attn_core(
         s = constrain(s, "batch", None, None, None, "kv_seq")  # (B, H_kv, C, g, S)
         if masked is not None:
             s = s.masked_fill(masked.unsqueeze(1), NEG_INF)
-        return merge_dims(_softmax(s).to(v.dtype), 2, 3) @ vt   # (B, H_kv, C * g, D)
+        return _pv_split_over_idle_axes(merge_dims(_softmax(s).to(v.dtype), 2, 3), vt, g)
 
     dim = 1 if head_mode else 2               # the query dim of `qs`
     if sq <= q_chunk:
@@ -398,10 +539,59 @@ def _attn_core(
     return merge_dims(out, 2, 3).to(q.dtype)
 
 
+def _gathered_over_batch(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The weight `w` (K, N) of a product ``x @ w`` where a mesh dim splits
+    the batch of `x` (dim 0), laid out so that each rank multiplies its own
+    shards: whole on every such mesh dim (the FSDP weight gathered at its
+    use), split along K where `x` is split along K (the contraction split,
+    a partial sum), and elsewhere split along N where it divides (each rank
+    its own output columns). Not a `constrain` (the reference has none
+    here): `DTensor`, weighing communication alone, otherwise gathers the
+    activations' batch where they are the smaller tensor (a decode step's
+    one token a row) and computes the product for the whole batch on every
+    rank of the data axis, 16 times its share; the reference's partitioner
+    gathers the weight. With no batch split (batch 1) `w` is left as it
+    is: there a gather of the one row costs less than one of the weight."""
+    if not (isinstance(w, DTensor) and isinstance(x, DTensor)) or not any(
+            isinstance(q, Shard) and q.dim % x.ndim == 0 for q in x.placements):
+        return w
+    mesh = w.device_mesh
+    placements = []
+    for m, (p, q) in enumerate(zip(w.placements, x.placements)):
+        if isinstance(q, Shard) and q.dim % x.ndim == 0:
+            placements.append(Replicate())
+        elif isinstance(q, Shard) and q.dim % x.ndim == x.ndim - 1:
+            placements.append(Shard(0))
+        elif p == Replicate() and q == Replicate() and w.shape[1] % mesh.size(m) == 0:
+            placements.append(Shard(1))
+        else:
+            placements.append(p)
+    if placements == list(w.placements):
+        return w
+    return w.redistribute(mesh, placements)
+
+
+def _plus_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y + b, `b` over the trailing dims of `y`. Where `y` is a partial sum
+    (a split contraction) on a mesh dim that splits `b`, the sum is reduced
+    first into the bias's split, one reduce-scatter: the layout `DTensor`
+    picks itself in torch 2.13, where 2.11 would make the split bias a
+    partial sum instead and has no rule for that."""
+    if isinstance(y, DTensor) and isinstance(b, DTensor):
+        lead = y.ndim - b.ndim
+        placements = [Shard(q.dim % b.ndim + lead) if p.is_partial() and isinstance(q, Shard)
+                      else p for p, q in zip(y.placements, b.placements)]
+        if placements != list(y.placements):
+            y = y.redistribute(y.device_mesh, placements)
+    return y + b
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
+    """einsum("bsd,dhk->bshk") as one matmul over the flattened heads, the
+    weight gathered over the batch's mesh axes."""
     h, k = w.shape[1], w.shape[2]
-    return split_dim(x @ merge_dims(w.to(x.dtype), 1, 2), -1, (h, k))
+    w = _gathered_over_batch(merge_dims(w.to(x.dtype), 1, 2), x)
+    return split_dim(x @ w, -1, (h, k))
 
 
 def attention(
@@ -432,7 +622,7 @@ def attention(
 
     q = _project(x, p["wq"])
     if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
+        q = _plus_bias(q, p["bq"].to(x.dtype))
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], cfg, q)
 
@@ -494,8 +684,8 @@ def _kv(p: dict, cfg: ModelConfig, src: torch.Tensor) -> tuple[torch.Tensor, tor
     k = _project(src, p["wk"])
     v = _project(src, p["wv"])
     if "bk" in p:
-        k = k + p["bk"].to(src.dtype)
-        v = v + p["bv"].to(src.dtype)
+        k = _plus_bias(k, p["bk"].to(src.dtype))
+        v = _plus_bias(v, p["bv"].to(src.dtype))
     if cfg.qk_norm:
         k = apply_norm(p["k_norm"], cfg, k)
     return k, v
@@ -561,7 +751,7 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = x @ p["w_up"].to(x.dtype)
     if "b_up" in p:
-        h = h + p["b_up"].to(x.dtype)
+        h = _plus_bias(h, p["b_up"].to(x.dtype))
     if cfg.glu:
         gate = x @ p["w_gate"].to(x.dtype)
         h = _act(cfg, gate) * h

@@ -33,6 +33,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _act
@@ -86,11 +88,43 @@ def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
         h = _act(cfg, gate) * h
     else:
         h = _act(cfg, h)
-    f = h.shape[-1]
-    h = constrain(split_dim(h, 1, (b, c)).transpose(0, 1), "batch", "expert", None, "tp")
-    h = merge_dims(h.transpose(0, 1), 1, 2)
-    ye = torch.bmm(h, p["w_down"].to(xe.dtype))
+    h = constrain(_rows_by_batch(h, b, c), "batch", "expert", None, "tp")
+    ye = torch.bmm(_rows_merged(h), p["w_down"].to(xe.dtype))
     return split_dim(ye, 1, (b, c)).transpose(0, 1)
+
+
+def _rows_by_batch(h: torch.Tensor, b: int, c: int) -> torch.Tensor:
+    """(E, B·C, F), B outer in the merged dim, as (B, E, C, F). A `DTensor`
+    goes rank by rank through `local_map`, a split of the merged dim taken
+    by B (replicated first where B does not divide): torch 2.11's `DTensor`
+    takes the gradient's reshape back as a view of a transposed local
+    shard, which raises."""
+    if not isinstance(h, DTensor):
+        return split_dim(h, 1, (b, c)).transpose(0, 1)
+    mesh = h.device_mesh
+    rows = [m for m, p in enumerate(h.placements) if isinstance(p, Shard) and p.dim % 3 == 1]
+    if b % math.prod(mesh.size(m) for m in rows):
+        h = h.redistribute(mesh, [Replicate() if m in rows else p
+                                  for m, p in enumerate(h.placements)])
+    out = [Shard((1, 0, 3)[p.dim % 3]) if isinstance(p, Shard) else p for p in h.placements]
+    return local_map(lambda t: t.unflatten(1, (t.shape[1] // c, c)).transpose(0, 1),
+                     out_placements=out, in_placements=(h.placements,),
+                     device_mesh=mesh)(h)
+
+
+def _rows_merged(h: torch.Tensor) -> torch.Tensor:
+    """(B, E, C, F) as (E, B·C, F), `_rows_by_batch` undone (a split of C
+    replicated first)."""
+    if not isinstance(h, DTensor):
+        return merge_dims(h.transpose(0, 1), 1, 2)
+    mesh = h.device_mesh
+    if any(isinstance(p, Shard) and p.dim % 4 == 2 for p in h.placements):
+        h = h.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim % 4 == 2 else p
+                                  for p in h.placements])
+    out = [Shard((1, 0, None, 2)[p.dim % 4]) if isinstance(p, Shard) else p
+           for p in h.placements]
+    return local_map(lambda t: t.transpose(0, 1).flatten(1, 2), out_placements=out,
+                     in_placements=(h.placements,), device_mesh=mesh)(h)
 
 
 def combine(yw: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
@@ -124,8 +158,11 @@ def route(p: dict, cfg: ModelConfig,
         pad = replicate_like(torch.arange(e, device=x.device) >= cfg.moe_num_experts, logits)
         logits = logits.masked_fill(pad, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, expert_idx = ranked[..., :k], order[..., :k]
+    # The ranking carries no gradient; the gates are gathered from the
+    # probabilities by it. (The gradient of `sort` on a `DTensor` scatters
+    # into a plain tensor in torch 2.11, which raises.)
+    expert_idx = torch.sort(probs.detach(), dim=-1, descending=True, stable=True).indices[..., :k]
+    gate_vals = torch.gather(probs, -1, expert_idx)
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), expert_idx
 
 

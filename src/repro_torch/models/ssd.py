@@ -8,9 +8,9 @@ that needs gradients (training) runs `ssd_chunked` itself, differentiable
 by autograd, as the JAX package's training does; on `DTensor`s rank by
 rank through `local_map`, as the kernel's entry runs. A decode step (S == 1
 with a cache) is the plain recurrence `ssd_decode_step`, as in the
-reference. Matmuls run in the activations' dtype (bf16) on fp32
-parameters cast at use; the scan, its state and the gated norm's
-statistics are fp32.
+reference, its ``y = C h`` one batched product. Matmuls run in the
+activations' dtype (bf16) on fp32 parameters cast at use; the scan, its
+state and the gated norm's statistics are fp32.
 
 Under a mesh the projections and the output are laid out where the
 reference's `constrain` calls put them, the conv's zero state takes its
@@ -26,7 +26,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -52,12 +53,31 @@ def ssd_decode_step(
     bh = b_t.float().repeat_interleave(rep, dim=1)       # (B, H, N)
     ch = c_t.float().repeat_interleave(rep, dim=1)
     decay = torch.exp(dt_a_t.float())                    # (B, H)
-    # The outer product and the contraction over N as broadcast products
-    # and a sum: no reshape of the (B, H) dims, which a `DTensor` split on
-    # both could take only at a strided layout.
+    # The outer product as a broadcast product: no reshape of the (B, H)
+    # dims, which a `DTensor` split on both could take only at a strided
+    # layout.
     new_state = state * decay[..., None, None] + x_t.float()[..., None] * bh[:, :, None, :]
-    y = (new_state * ch[:, :, None, :]).sum(dim=-1)
+    y = _read_state(new_state, ch)
     return y.to(x_t.dtype), new_state
+
+
+def _read_state(state: torch.Tensor, ch: torch.Tensor) -> torch.Tensor:
+    """y = C h: the state (B, H, P, N) contracted with C (B, H, N) over N
+    into (B, H, P), one batched product, as the reference's einsum. A
+    `DTensor` state goes rank by rank through `local_map`, C laid out to
+    match its shards (a few KB), so that no reshape of the product's
+    batching meets two split dims; a split N gives a partial sum."""
+    if not isinstance(state, DTensor):
+        return torch.einsum("bhpn,bhn->bhp", state, ch)
+    c_at, out = [], []
+    for p in state.placements:
+        d = p.dim % state.ndim if isinstance(p, Shard) else None
+        c_at.append(Shard(d) if d in (0, 1) else Shard(2) if d == 3 else Replicate())
+        out.append(Partial() if d == 3 or p.is_partial() else Replicate() if d is None else Shard(d))
+    mesh = state.device_mesh
+    return local_map(lambda s, c: torch.einsum("bhpn,bhn->bhp", s, c), out_placements=out,
+                     in_placements=(state.placements, c_at),
+                     device_mesh=mesh)(state, ch.redistribute(mesh, c_at))
 
 
 def _layout_of(x: torch.Tensor) -> NamedSharding | None:

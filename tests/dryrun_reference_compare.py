@@ -1,14 +1,24 @@
-"""One dry-run cell on both sides: the port's `lower_cell` and the JAX
+"""Dry-run cells on both sides: the port's `lower_cell` and the JAX
 package's, the reference in a process of its own that forces 512 host
-devices before importing JAX. Prints each side's per-chip product FLOPs
-(the reference's dots, `analyze_hlo`), collective bytes and bytes, and
-the port's over the reference's.
+devices before importing JAX. Prints one JSON line per cell: each side's
+per-chip product FLOPs (the reference's dots, `analyze_hlo`), collective
+bytes and bytes, its dominant term (both sides' counts over the same H100
+peaks, `roofline.analysis.HW_H100`), and the port's over the reference's.
 
-  PYTHONPATH=src python tests/dryrun_reference_compare.py ARCH SHAPE [--layers N]
-      [--microbatches N] [--multi-pod]
+  PYTHONPATH=src python tests/dryrun_reference_compare.py ARCH SHAPE [ARCH SHAPE ...]
+      [--layers N] [--microbatches N] [--multi-pod | --mesh MESH] [--jobs J] [--top K]
+  PYTHONPATH=src python tests/dryrun_reference_compare.py --serving [--mesh both]
+      [--layers 2] [--jobs 6]
 
-`--layers` cuts the config to N layers on both sides (registered under
-the name ARCH-Nl). Not a test: pytest collects nothing here.
+`--serving` adds every serving cell (every config's prefill_32k and
+decode_32k, and long_500k where the config has it). `--mesh` is
+pod16x16, pod2x16x16 or both (`--multi-pod` is pod2x16x16). `--layers`
+cuts each config to N layers on both sides, rounded up to a whole number
+of its block pattern (jamba's 8), registered under the name ARCH-Nl.
+Cells run `--jobs` at a time, each in a process of its own (a dry-run holds
+one fake process group), the reference beside the port. `--top K` adds each
+side's K largest products and collectives. Not a test: pytest collects
+nothing here.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE = """
@@ -29,50 +40,157 @@ from repro.launch.dryrun import lower_cell
 from repro.roofline.hlo_parse import analyze_hlo
 arch, shape = sys.argv[1], sys.argv[2]
 layers, micro, multi = int(sys.argv[3]), int(sys.argv[4]), sys.argv[5] == "1"
+top = int(sys.argv[6]) if len(sys.argv) > 6 else 0
 name = arch
 if layers:
     name = f"{arch}-{layers}l"
     base.register(dataclasses.replace(base.get_config(arch), num_layers=layers, name=name))
 rec, compiled = lower_cell(name, shape, multi_pod=multi, microbatches=micro, verbose=False)
 cost = analyze_hlo(compiled.as_text())
-print(json.dumps({"flops": cost.flops, "coll": cost.collective_bytes,
-                  "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"]}))
+out = {"flops": cost.flops, "coll": cost.collective_bytes,
+       "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"]}
+if top:
+    out["top_flops"] = [[r[0], r[2], str(r[3])] for r in cost.top_flops[:top]]
+    out["top_collectives"] = [[r[0], r[2], str(r[3])] for r in cost.top_collectives[:top]]
+print(json.dumps(out))
 """
+MESH_NAMES = ("pod16x16", "pod2x16x16")
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("arch")
-    ap.add_argument("shape")
-    ap.add_argument("--layers", type=int, default=0)
-    ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--multi-pod", action="store_true")
-    args = ap.parse_args(argv)
+def _env() -> dict:
+    return {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"), "JAX_PLATFORMS": "cpu"}
 
-    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"), "JAX_PLATFORMS": "cpu"}
-    res = subprocess.run([sys.executable, "-c", REFERENCE, args.arch, args.shape, str(args.layers),
-                          str(args.microbatches), str(int(args.multi_pod))],
-                         capture_output=True, text=True, env=env, cwd=REPO, timeout=3600)
-    if res.returncode != 0:
-        sys.exit(res.stderr[-3000:])
-    ref = json.loads(res.stdout.strip().splitlines()[-1])
+
+def cut_layers(arch: str, layers: int) -> int:
+    """`layers` rounded up to a whole number of the config's block pattern
+    (0: the config's own depth)."""
+    if not layers:
+        return 0
+    from repro_torch.configs import get_config
+
+    period = len(get_config(arch).pattern)
+    return -(-layers // period) * period
+
+
+def serving_cells() -> list[tuple[str, str]]:
+    from repro_torch.configs import all_configs, shapes_for
+
+    return [(arch, s.name) for arch, cfg in sorted(all_configs().items())
+            for s in shapes_for(cfg) if s.kind != "train"]
+
+
+def dominant(flops: float, coll: float, nbytes: float) -> str:
+    from repro_torch.roofline.analysis import HW_H100
+
+    terms = {"compute": flops / HW_H100["peak_flops"], "memory": nbytes / HW_H100["hbm_bw"],
+             "collective": coll / HW_H100["link_bw"]}
+    return max(terms, key=terms.get)
+
+
+def _port_top(gm, k: int) -> dict:
+    import torch
+
+    from repro_torch.roofline.graph_parse import analyze_graph_module
+
+    inputs = [torch.empty_strided(v.shape, v.stride(), dtype=v.dtype, device="meta")
+              for v in (n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder")]
+    cost = analyze_graph_module(gm, inputs)
+    return {"top_flops": [[r[0], r[2], str(r[3])] for r in cost.top_flops[:k]],
+            "top_collectives": [[r[0], r[2], str(r[3])] for r in cost.top_collectives[:k]]}
+
+
+def compare_cell(arch: str, shape: str, layers: int, microbatches: int, multi_pod: bool,
+                 top: int = 0) -> dict:
+    """Both sides of one cell in this process's care: the reference in a
+    subprocess started first, the port here while it runs."""
+    ref_proc = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE, arch, shape, str(layers), str(microbatches),
+         str(int(multi_pod)), str(top)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_env(), cwd=REPO)
 
     from repro_torch.configs import base, get_config
     from repro_torch.launch.dryrun import lower_cell
 
-    name = args.arch
-    if args.layers:
-        name = f"{args.arch}-{args.layers}l"
-        base.register(dataclasses.replace(get_config(args.arch), num_layers=args.layers,
-                                          name=name))
-    rec, _ = lower_cell(name, args.shape, multi_pod=args.multi_pod,
-                        microbatches=args.microbatches, verbose=False)
-    port = {"flops": rec["flops_per_chip"], "coll": rec["coll_bytes_per_chip"],
-            "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"]}
-    print(json.dumps({"cell": f"{name} {args.shape} microbatches {args.microbatches}",
-                      "port": port, "reference": ref, "lower_s": rec["lower_s"],
-                      "port_over_reference": {k: port[k] / ref[k] if ref[k] else None
-                                              for k in port}}))
+    name = arch
+    if layers:
+        name = f"{arch}-{layers}l"
+        if name not in base.all_configs():
+            base.register(dataclasses.replace(get_config(arch), num_layers=layers, name=name))
+    try:
+        rec, gm = lower_cell(name, shape, multi_pod=multi_pod, microbatches=microbatches,
+                             verbose=False)
+        port = {"flops": rec["flops_per_chip"], "coll": rec["coll_bytes_per_chip"],
+                "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"],
+                "dominant": rec["dominant"]}
+        if top:
+            port.update(_port_top(gm, top))
+        out, err = ref_proc.communicate(timeout=3600)
+    finally:
+        if ref_proc.poll() is None:
+            ref_proc.kill()
+            ref_proc.communicate()
+    if ref_proc.returncode != 0:
+        raise RuntimeError(f"reference {name} {shape}: {err[-3000:]}")
+    ref = json.loads(out.strip().splitlines()[-1])
+    ref["dominant"] = dominant(ref["flops"], ref["coll"], ref["bytes"])
+    keys = ("flops", "coll", "bytes", "model_flops")
+    return {"cell": f"{name} {shape} microbatches {microbatches}", "arch": arch,
+            "shape": shape, "layers": layers,
+            "mesh": MESH_NAMES[int(multi_pod)], "port": port, "reference": ref,
+            "lower_s": rec["lower_s"],
+            "port_over_reference": {k: port[k] / ref[k] if ref[k] else None for k in keys}}
+
+
+def _run_one(arch: str, shape: str, layers: int, microbatches: int, multi_pod: bool,
+             top: int) -> dict:
+    """One cell in a process of its own; its JSON line, or an error record."""
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--one", arch, shape,
+         "--layers", str(layers), "--microbatches", str(microbatches), "--top", str(top)]
+        + (["--multi-pod"] if multi_pod else []),
+        capture_output=True, text=True, env=_env(), cwd=REPO, timeout=7200)
+    if res.returncode != 0:
+        return {"cell": f"{arch} {shape}", "mesh": MESH_NAMES[int(multi_pod)],
+                "error": res.stderr[-2000:]}
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("cells", nargs="*", help="ARCH SHAPE pairs")
+    ap.add_argument("--serving", action="store_true", help="every serving cell")
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--mesh", choices=MESH_NAMES + ("both",), default=None)
+    ap.add_argument("--jobs", type=int, default=1)
+    ap.add_argument("--top", type=int, default=0)
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+
+    if len(args.cells) % 2:
+        ap.error("cells are ARCH SHAPE pairs")
+    if args.one:
+        print(json.dumps(compare_cell(args.cells[0], args.cells[1], args.layers,
+                                      args.microbatches, args.multi_pod, args.top)))
+        return
+    cells = list(zip(args.cells[::2], args.cells[1::2]))
+    if args.serving:
+        cells += serving_cells()
+    if not cells:
+        ap.error("no cell: give ARCH SHAPE pairs or --serving")
+    mesh = args.mesh or ("pod2x16x16" if args.multi_pod else "pod16x16")
+    pods = [m == "pod2x16x16" for m in (MESH_NAMES if mesh == "both" else (mesh,))]
+    jobs = [(arch, shape, cut_layers(arch, args.layers), args.microbatches, multi, args.top)
+            for multi in pods for arch, shape in cells]
+    failed = 0
+    with ThreadPoolExecutor(max(1, args.jobs)) as pool:
+        for rec in pool.map(lambda j: _run_one(*j), jobs):
+            failed += "error" in rec
+            print(json.dumps(rec), flush=True)
+    if failed:
+        sys.exit(f"{failed} of {len(jobs)} cells failed")
 
 
 if __name__ == "__main__":
