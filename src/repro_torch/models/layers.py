@@ -24,9 +24,12 @@ one rank at most, so every rank holds whole (batch, head) slices. Where
 `DTensor`, which weighs communication alone, would repeat work the
 reference's partitioner splits, the layout is steered where it happens: the
 vocab lookup never gathers the whole table (`_lookup`), a projection's FSDP
-weight is gathered over the batch's mesh axes (`_gathered_over_batch`), and
-at batch 1 the kv_seq mode's P·V is split by heads over the mesh axes that
-split nothing (`_pv_split_over_idle_axes`).
+weight is gathered over the batch's mesh axes (`_gathered_over_batch`), at
+batch 1 the kv_seq mode's P·V is split by heads over the mesh axes that
+split nothing (`_pv_split_over_idle_axes`), and a sum over a split dim
+(a norm's mean, the softmax's sum, the loss's ``logsumexp``, the kv_seq
+mode's context in training) is all-reduced with its gradient whole
+(`_reduced`).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from repro_torch.models.spec import Ax, ParamSpec
 from repro_torch.sharding.rules import (
     constrain,
     current_rules,
+    grad_in_layout,
     local_extent,
     merge_dims,
     replicate_like,
@@ -74,9 +78,9 @@ def norm_spec(cfg: ModelConfig, dim: int | None = None) -> dict:
 
 def _mean(x: torch.Tensor) -> torch.Tensor:
     """Mean over the last dim as its sum over the count (what `mean`
-    computes): over a dim sharded across ranks a partial sum, which
-    `DTensor` reduces in the backward pass too."""
-    return x.sum(dim=-1, keepdim=True) / x.shape[-1]
+    computes): over a dim sharded across ranks a partial sum, all-reduced
+    with its gradient whole (`_reduced`)."""
+    return _reduced(x.sum(dim=-1, keepdim=True)) / x.shape[-1]
 
 
 def apply_norm(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -378,12 +382,40 @@ def _positions_along(t: torch.Tensor, dim: int) -> torch.Tensor:
     return distribute_tensor(pos, t.device_mesh, placements, src_data_rank=None)
 
 
+def _reduced(t: torch.Tensor) -> torch.Tensor:
+    """`t`, a reduction over a dim split across ranks (a partial sum there),
+    all-reduced, and its gradient brought whole onto every rank of that
+    dim before the backward pass expands it back over the split dim. The
+    reference's partitioner does the same: a small all-reduce each way.
+    `DTensor` otherwise reduces the sum inside the op that reads it and
+    hands the backward a partial-sum gradient, which the expand turns into
+    a partial sum of the split tensor's whole size, reduce-scattered onto
+    its split (in the kv_seq mode a fp32 (B, H_kv, C, g, S_k) score-sized
+    reduce-scatter a chunk), or moves the split tensor across the mesh to
+    meet it (a norm's input, from its d split to a batch split)."""
+    if not isinstance(t, DTensor) or not any(p.is_partial() for p in t.placements):
+        return t
+    t = t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                       for p in t.placements])
+    return grad_in_layout(t)
+
+
 def _softmax(s: torch.Tensor) -> torch.Tensor:
     """Softmax over the last dim as the reference computes it, exp(s - max)
-    over its sum: on a dim sharded across ranks the max and the sum are
-    partial reductions, all-reduced, not a gather of the scores."""
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
+    over its sum, the max taken without gradient: on a dim sharded across
+    ranks the max and the sum are partial reductions, all-reduced
+    (`_reduced`), not a gather of the scores."""
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+    return e / _reduced(e.sum(dim=-1, keepdim=True))
+
+
+def _logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """log(sum(exp(x))) over the last dim as the reference computes it, the
+    max (without gradient) plus the log of the sum of exp(x - max): on a
+    dim sharded across ranks (the loss's vocabulary) two small
+    all-reduces, where `DTensor`'s own ``logsumexp`` gathers the logits."""
+    m = x.amax(dim=-1, keepdim=True).detach()
+    return (m + torch.log(_reduced(torch.exp(x - m).sum(dim=-1, keepdim=True)))).squeeze(-1)
 
 
 def _pv_split_over_idle_axes(pm: torch.Tensor, vt: torch.Tensor, g: int) -> torch.Tensor:
@@ -519,7 +551,13 @@ def _attn_core(
         s = constrain(s, "batch", None, None, None, "kv_seq")  # (B, H_kv, C, g, S)
         if masked is not None:
             s = s.masked_fill(masked.unsqueeze(1), NEG_INF)
-        return _pv_split_over_idle_axes(merge_dims(_softmax(s).to(v.dtype), 2, 3), vt, g)
+        o = _pv_split_over_idle_axes(merge_dims(_softmax(s).to(v.dtype), 2, 3), vt, g)
+        # Training all-reduces the context's partial sums over kv_seq, as
+        # the reference does, so that its gradient reaches the products of
+        # the scores whole and they stay split along S_k. `DTensor` would
+        # reduce-scatter the sum onto the batch and bring the gradient back
+        # so, moving score-sized tensors in the backward pass.
+        return _reduced(o) if ops.needs_grad(o) else o
 
     dim = 1 if head_mode else 2               # the query dim of `qs`
     if sq <= q_chunk:

@@ -18,7 +18,9 @@ Under a mesh the hidden states are laid out where the reference's
 `constrain` puts them, the caches `lm_prefill` builds are sharded by
 `stack_cache_axes` (the layout of the decode cells' abstract caches), and
 the loss picks each label's logit by a masked sum over the vocabulary,
-which `DTensor` computes on vocabulary-sharded logits.
+which `DTensor` computes on vocabulary-sharded logits; their ``logsumexp``
+reduces a max and a sum across the vocabulary's ranks (`layers._logsumexp`),
+and in training the output table is gathered over the batch's axes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDef, ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssd as S
@@ -38,7 +41,6 @@ from repro_torch.models.spec import Ax, abstract_like, stacked
 from repro_torch.sharding.rules import (
     constrain,
     current_rules,
-    replicate_like,
     under_current_rules,
 )
 
@@ -413,13 +415,20 @@ def lm_hidden(
 
 def logits_from_hidden(p: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """fp32 logits of bf16 operands (the JAX package's preferred_element_type
-    fp32), padded vocab rows masked to NEG_INF."""
-    table = L.output_table(p["embed"]).to(h.dtype)
-    logits = (h.float() @ table.float().T) * cfg.logit_scale
+    fp32), padded vocab rows masked to NEG_INF. Under autograd on a mesh
+    the bf16 table is gathered over the batch's mesh axes at its use (the
+    FSDP weight, as the reference's partitioner gathers it) and upcast
+    after, so each rank computes its own rows' logits for its own
+    vocabulary columns; `DTensor` would otherwise split the product's
+    contraction along d and all-reduce the fp32 logits (command-r-plus:
+    (256, 512, 256000) a loss chunk)."""
+    table = L.output_table(p["embed"]).to(h.dtype).T
+    if ops.needs_grad(h, table):
+        table = L._gathered_over_batch(table, h)
+    logits = (h.float() @ table.float()) * cfg.logit_scale
     v_pad = cfg.padded_vocab()
     if v_pad != cfg.vocab_size:
-        invalid = replicate_like(torch.arange(v_pad, device=h.device) >= cfg.vocab_size,
-                                 logits)
+        invalid = L._positions_along(logits, 2) >= cfg.vocab_size
         logits = logits.masked_fill(invalid, NEG_INF)
     return logits
 
@@ -439,12 +448,11 @@ def chunked_xent(
         raise ValueError(f"sequence length {s} is not a multiple of the loss chunk {chunk}")
     loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
-    vocab = replicate_like(torch.arange(cfg.padded_vocab(), device=h.device), h)
     for i in range(0, s, chunk):
         l_c = labels[:, i:i + chunk]
         logits = logits_from_hidden(p, cfg, h[:, i:i + chunk])     # (B, C, V) fp32
-        lse = torch.logsumexp(logits, dim=-1)
-        hit = vocab == l_c.clamp_min(0)[..., None]
+        lse = L._logsumexp(logits)
+        hit = L._positions_along(logits, 2) == l_c.clamp_min(0)[..., None]
         picked = torch.where(hit, logits, 0.0).sum(dim=-1)
         valid = (l_c >= 0).float()
         loss_sum = loss_sum + ((lse - picked) * valid).sum()

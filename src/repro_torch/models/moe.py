@@ -12,7 +12,11 @@ Under a mesh the slots, the expert hidden states and the output are laid
 out where the reference's `constrain` calls put them (experts on
 ``expert``, the hidden dim on ``tp``, the batch rows on ``batch``); every
 gather and scatter indexes within a batch row, so a row's routing stays on
-the ranks that hold the row.
+the ranks that hold the row. Where the experts are split, each rank
+gathers (`_dispatch`) and combines (`_combine_local_slots`) only its own
+experts' slots, and in training the expert weights are gathered over the
+rows' axes (`_gathered_over_rows`), as the reference's partitioner lays
+them out.
 
 Where a literal port would differ from the reference:
 - router logits are fp32 products of operands in the activations' dtype
@@ -33,15 +37,18 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _act
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _act, _reduced
 from repro_torch.models.spec import ParamSpec
 from repro_torch.sharding.rules import (
     constrain,
+    current_rules,
     grad_in_layout,
+    local_extent,
     merge_dims,
     replicate_like,
     split_dim,
@@ -82,15 +89,34 @@ def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
     out as (B, E, C, F) between the two products."""
     b, e, c, d = xe.shape
     xs = merge_dims(xe.transpose(0, 1), 1, 2)
-    h = torch.bmm(xs, p["w_up"].to(xe.dtype))
+    h = torch.bmm(xs, _gathered_over_rows(p["w_up"].to(xe.dtype), xs))
     if cfg.glu:
-        gate = torch.bmm(xs, p["w_gate"].to(xe.dtype))
+        gate = torch.bmm(xs, _gathered_over_rows(p["w_gate"].to(xe.dtype), xs))
         h = _act(cfg, gate) * h
     else:
         h = _act(cfg, h)
-    h = constrain(_rows_by_batch(h, b, c), "batch", "expert", None, "tp")
-    ye = torch.bmm(_rows_merged(h), p["w_down"].to(xe.dtype))
+    h = _rows_merged(constrain(_rows_by_batch(h, b, c), "batch", "expert", None, "tp"))
+    ye = torch.bmm(h, _gathered_over_rows(p["w_down"].to(xe.dtype), h))
     return split_dim(ye, 1, (b, c)).transpose(0, 1)
+
+
+def _gathered_over_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The expert weight `w` (E, K, N) of ``bmm(x, w)``, `x` (E, R, K),
+    under autograd whole on every mesh dim that splits the rows R of `x`:
+    the FSDP weight gathered at its use, as the reference's partitioner
+    gathers it, and its gradient reduce-scattered back. Not a `constrain`
+    (the reference has none here): `DTensor`, weighing communication
+    alone, otherwise splits the contraction over that mesh dim and
+    reduce-scatters the (E, R, N) partial sums of every row onto the rows,
+    16 times a rank's share of the product's output (jamba: (1, 163840,
+    24576) a product)."""
+    if not (isinstance(w, DTensor) and isinstance(x, DTensor)) or not ops.needs_grad(x, w):
+        return w
+    rows = {m for m, q in enumerate(x.placements) if isinstance(q, Shard) and q.dim % x.ndim == 1}
+    placements = [Replicate() if m in rows else p for m, p in enumerate(w.placements)]
+    if placements == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, placements)
 
 
 def _rows_by_batch(h: torch.Tensor, b: int, c: int) -> torch.Tensor:
@@ -127,21 +153,80 @@ def _rows_merged(h: torch.Tensor) -> torch.Tensor:
                      in_placements=(h.placements,), device_mesh=mesh)(h)
 
 
+def _dispatch(xp: torch.Tensor, slot_tok: torch.Tensor, e: int) -> torch.Tensor:
+    """Each slot's token row: xp (B, S + 1, D), the zero row last, at
+    slot_tok (B, n_slots) -> (B, n_slots, D). Where a mesh splits the
+    experts and the rows are whole along D (training's), each rank gathers
+    its own slots' rows, laid out as the slots' experts will be, and the
+    gradient is each rank's scatter-add of its slots into the tokens, a
+    partial sum that the backward pass reduces, as the reference's
+    partitioner reduces it. `DTensor` would gather the rows of every slot
+    on each rank and, in the backward pass, gather every slot's gradient:
+    (B, E · capacity, D) a layer, 16 times a rank's share (granite: 2.4 GB
+    a rank)."""
+    b, _, d = xp.shape
+    n_slots = slot_tok.shape[1]
+    rules = current_rules()
+    if isinstance(xp, DTensor) and rules is not None and rules.mesh is not None:
+        experts = list(rules.sharding(("batch", "expert", None), (b, e, d)).placements)
+        rows = [Shard(0) if p == Shard(0) else Replicate() for p in experts]
+        if Shard(1) in experts and all(q in (p, Replicate()) for p, q in zip(rows, xp.placements)):
+            grad = [Partial() if p == Shard(1) else q for p, q in zip(experts, rows)]
+            return local_map(lambda t, i: torch.gather(t, 1, i[..., None].expand(*i.shape, d)),
+                             out_placements=experts, in_placements=(rows, experts),
+                             in_grad_placements=(grad, experts),
+                             device_mesh=xp.device_mesh)(xp.redistribute(xp.device_mesh, rows),
+                                                         slot_tok.redistribute(xp.device_mesh,
+                                                                               experts))
+    return torch.gather(xp, 1, slot_tok[..., None].expand(b, n_slots, d))
+
+
 def combine(yw: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Each token's sum of its weighted slot outputs. yw: (B, n_slots, D);
     slots: (B, S, k), a token's slots, `n_slots` for a choice over
     capacity. The k rows (the trash slot reads a zero row) are added in
     ascending slot order, rounding to yw's dtype after each add: the
     reference's sequential scatter-add, bit for bit, with no atomics."""
-    b, _, d = yw.shape
+    if isinstance(yw, DTensor) and any(isinstance(p, Shard) and p.dim % 3 == 1
+                                       for p in yw.placements):
+        return _combine_local_slots(yw, slots)
+    return _combine(yw, slots, 0)
+
+
+def _combine(yw: torch.Tensor, slots: torch.Tensor, first: int) -> torch.Tensor:
+    """`combine` of the slots first .. first + n - 1 held in `yw` (B, n,
+    D); every other slot reads a zero row, which adds nothing."""
+    b, n, d = yw.shape
     s, k = slots.shape[1], slots.shape[2]
     yw = torch.cat([yw, yw.new_zeros((b, 1, d))], dim=1)
-    order = merge_dims(slots.sort(dim=-1).values, 1, 2)[..., None].expand(b, s * k, d)
+    j = slots.sort(dim=-1).values - first
+    order = torch.where((j >= 0) & (j < n), j, n)
+    order = merge_dims(order, 1, 2)[..., None].expand(b, s * k, d)
     picked = split_dim(torch.gather(yw, 1, order), 1, (s, k))        # (B, S, k, D)
     y = picked[:, :, 0]
-    for j in range(1, slots.shape[-1]):
-        y = y + picked[:, :, j]
+    for i in range(1, k):
+        y = y + picked[:, :, i]
     return y
+
+
+def _combine_local_slots(yw: DTensor, slots: DTensor) -> DTensor:
+    """`combine` with the slots split across ranks (the experts on
+    ``expert``): each rank adds its own slots' rows, in ascending slot
+    order, a partial sum over the mesh dims that split the slots, which the
+    caller's layout reduces, as the reference's partitioner reduces its
+    scatter-add's partial sums. `DTensor` would gather every slot's row
+    onto each rank first: (B, E · capacity, D) a layer, 16 times a rank's
+    share (granite: 2.4 GB a rank, against the partial sum's 0.2 GB). A
+    token whose slots lie on several ranks is summed in another order than
+    the one-rank combine's, as on the reference's mesh."""
+    mesh = yw.device_mesh
+    out = [Partial() if isinstance(p, Shard) and p.dim % 3 == 1 else p for p in yw.placements]
+    ids = [Shard(0) if isinstance(p, Shard) and p.dim % 3 == 0 else Replicate()
+           for p in yw.placements]
+    slots = slots.redistribute(mesh, ids)
+    first, _ = local_extent(yw, 1)
+    return local_map(lambda y, i: _combine(y, i, first), out_placements=out,
+                     in_placements=(yw.placements, ids), device_mesh=mesh)(yw, slots)
 
 
 def route(p: dict, cfg: ModelConfig,
@@ -199,8 +284,8 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch
 
     # --- expert computation -----------------------------------------------------
     xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    xe = split_dim(torch.gather(xp, 1, slot_tok[..., None].expand(b, n_slots, d)), 1, (e, cap))
-    xe = constrain(xe, "batch", "expert", None, None)
+    xe = constrain(split_dim(_dispatch(xp, slot_tok, e), 1, (e, cap)),
+                   "batch", "expert", None, None)
     ye = merge_dims(_experts(p, cfg, xe), 1, 2)
 
     # --- combine ----------------------------------------------------------------
@@ -211,6 +296,9 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch
     # Means over the batch rows as sums over the count (what `mean`
     # computes): a partial sum over rows sharded across ranks.
     frac_tokens = F.one_hot(expert_idx[..., 0], e).float().sum(dim=(0, 1)) / (b * s)
-    frac_probs = probs.sum(dim=(0, 1)) / (b * s)
+    # The probabilities' sum is reduced here and its gradient whole on every
+    # rank (`layers._reduced`): a partial-sum gradient, expanded over the
+    # batch, would be reduce-scattered at the batch's whole (B, S, E) size.
+    frac_probs = _reduced(probs.sum(dim=(0, 1))) / (b * s)
     aux = e * (frac_tokens * frac_probs).sum()
     return y, aux

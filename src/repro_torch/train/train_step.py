@@ -102,6 +102,17 @@ def _contiguous_strides(shape: tuple) -> tuple:
     return tuple(reversed(strides))
 
 
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient `g` laid out as its parameter `p`, a partial sum
+    reduced once into the parameter's shards. `DTensor` leaves some
+    gradients partial sums (an expert weight's over the batch's axes);
+    the optimizer reads each gradient three times (the norm, the two
+    moments) and would reduce it at each read."""
+    if isinstance(g, DTensor) and isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def build_train_step(model: Model, opt_cfg: AdamWConfig,
                      step_cfg: StepConfig = StepConfig()):
     """Returns train_step(state, batch) -> (state, metrics): `batch` holds
@@ -117,7 +128,8 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig,
                               loss_chunk=step_cfg.loss_chunk, remat=step_cfg.remat)
             leaves = tree.flatten(live)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = [torch.zeros_like(p) if g is None else _laid_out_as(g, p)
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), tree.unflatten(params, iter(grads))
 
     def train_step(state: TrainState, batch: dict):

@@ -9,15 +9,21 @@ peaks, `roofline.analysis.HW_H100`), and the port's over the reference's.
       [--layers N] [--microbatches N] [--multi-pod | --mesh MESH] [--jobs J] [--top K]
   PYTHONPATH=src python tests/dryrun_reference_compare.py --serving [--mesh both]
       [--layers 2] [--jobs 6]
+  PYTHONPATH=src python tests/dryrun_reference_compare.py --training [--mesh both]
+      [--layers 2] [--jobs 4] [--top 10]
 
 `--serving` adds every serving cell (every config's prefill_32k and
-decode_32k, and long_500k where the config has it). `--mesh` is
+decode_32k, and long_500k where the config has it), `--training` every
+train cell (every config's train_4k). `--mesh` is
 pod16x16, pod2x16x16 or both (`--multi-pod` is pod2x16x16). `--layers`
 cuts each config to N layers on both sides, rounded up to a whole number
 of its block pattern (jamba's 8), registered under the name ARCH-Nl.
 Cells run `--jobs` at a time, each in a process of its own (a dry-run holds
 one fake process group), the reference beside the port. `--top K` adds each
-side's K largest products and collectives. Not a test: pytest collects
+side's K largest products and collectives, a collective as (bytes, kind,
+shape, dtype); the reference's bf16 all-reduces, which XLA's CPU backend
+promotes to f32 and which it counts at bf16 bytes, read "bf16 (promoted
+to f32)". Not a test: pytest collects
 nothing here.
 """
 
@@ -37,7 +43,7 @@ import os, sys, json, dataclasses
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
 from repro.configs import base
 from repro.launch.dryrun import lower_cell
-from repro.roofline.hlo_parse import analyze_hlo
+from repro.roofline.hlo_parse import COLLECTIVES, analyze_hlo, parse_module
 arch, shape = sys.argv[1], sys.argv[2]
 layers, micro, multi = int(sys.argv[3]), int(sys.argv[4]), sys.argv[5] == "1"
 top = int(sys.argv[6]) if len(sys.argv) > 6 else 0
@@ -46,12 +52,21 @@ if layers:
     name = f"{arch}-{layers}l"
     base.register(dataclasses.replace(base.get_config(arch), num_layers=layers, name=name))
 rec, compiled = lower_cell(name, shape, multi_pod=multi, microbatches=micro, verbose=False)
-cost = analyze_hlo(compiled.as_text())
+text = compiled.as_text()
+cost = analyze_hlo(text)
 out = {"flops": cost.flops, "coll": cost.collective_bytes,
        "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"]}
 if top:
     out["top_flops"] = [[r[0], r[2], str(r[3])] for r in cost.top_flops[:top]]
-    out["top_collectives"] = [[r[0], r[2], str(r[3])] for r in cost.top_collectives[:top]]
+    dtypes = {}
+    for comp in parse_module(text)[0].values():
+        for i in comp.instrs:
+            if i.opcode in COLLECTIVES:
+                promoted = i.opcode.startswith("all-reduce") and "promoted" in i.attrs
+                dtypes[(i.opcode.replace("-start", ""), i.shape)] = (
+                    "bf16 (promoted to f32)" if promoted else i.dtype)
+    out["top_collectives"] = [[r[0], r[2], str(r[3]), dtypes.get((r[2], r[3]), "?")]
+                              for r in cost.top_collectives[:top]]
 print(json.dumps(out))
 """
 MESH_NAMES = ("pod16x16", "pod2x16x16")
@@ -79,6 +94,13 @@ def serving_cells() -> list[tuple[str, str]]:
             for s in shapes_for(cfg) if s.kind != "train"]
 
 
+def training_cells() -> list[tuple[str, str]]:
+    from repro_torch.configs import all_configs, shapes_for
+
+    return [(arch, s.name) for arch, cfg in sorted(all_configs().items())
+            for s in shapes_for(cfg) if s.kind == "train"]
+
+
 def dominant(flops: float, coll: float, nbytes: float) -> str:
     from repro_torch.roofline.analysis import HW_H100
 
@@ -95,8 +117,11 @@ def _port_top(gm, k: int) -> dict:
     inputs = [torch.empty_strided(v.shape, v.stride(), dtype=v.dtype, device="meta")
               for v in (n.meta["val"] for n in gm.graph.nodes if n.op == "placeholder")]
     cost = analyze_graph_module(gm, inputs)
+    dtypes = {n.name: str(n.meta["val"].dtype).replace("torch.", "")
+              for n in gm.graph.nodes if isinstance(n.meta.get("val"), torch.Tensor)}
     return {"top_flops": [[r[0], r[2], str(r[3])] for r in cost.top_flops[:k]],
-            "top_collectives": [[r[0], r[2], str(r[3])] for r in cost.top_collectives[:k]]}
+            "top_collectives": [[r[0], r[2], str(r[3]), dtypes.get(r[4], "?")]
+                                for r in cost.top_collectives[:k]]}
 
 
 def compare_cell(arch: str, shape: str, layers: int, microbatches: int, multi_pod: bool,
@@ -160,6 +185,7 @@ def main(argv=None) -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("cells", nargs="*", help="ARCH SHAPE pairs")
     ap.add_argument("--serving", action="store_true", help="every serving cell")
+    ap.add_argument("--training", action="store_true", help="every train cell")
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--multi-pod", action="store_true")
@@ -178,8 +204,10 @@ def main(argv=None) -> None:
     cells = list(zip(args.cells[::2], args.cells[1::2]))
     if args.serving:
         cells += serving_cells()
+    if args.training:
+        cells += training_cells()
     if not cells:
-        ap.error("no cell: give ARCH SHAPE pairs or --serving")
+        ap.error("no cell: give ARCH SHAPE pairs, --serving or --training")
     mesh = args.mesh or ("pod2x16x16" if args.multi_pod else "pod16x16")
     pods = [m == "pod2x16x16" for m in (MESH_NAMES if mesh == "both" else (mesh,))]
     jobs = [(arch, shape, cut_layers(arch, args.layers), args.microbatches, multi, args.top)

@@ -9,7 +9,8 @@ under each rules table, in fp32 activations: the loss, every leaf's
 gradient, a prefill and two decode steps must equal the same calls with no
 mesh within 1e-4 (|a - b| <= 1e-4 * (1 + |b|)). The same world calls the
 kernels' entries on DTensors: whole layouts go through `local_map` and
-equal the plain version; a sequence-sharded layout raises. The MoE and
+equal the plain version; a sequence-sharded layout raises; and one train
+step of reduced granite-moe-3b-a800m equals the step with no mesh. The MoE and
 Mamba configs run in tests/test_torch_sharded_forward_mixers.py, a world
 of their own.
 
@@ -119,6 +120,17 @@ def test_split_batch_keeps_the_layout(gloo_world):
     assert got["placements"] == [["S(0)", "R"], ["S(0)", "R"]]
     assert got["shapes"] == [[8, 3], [8, 3]]
     assert got["equal"] == [True, True]
+
+
+def test_train_step_equals_unsharded(gloo_world):
+    """One `build_train_step` step of reduced granite-moe-3b-a800m on the
+    mesh under TRAIN_RULES against the step with no mesh: the metrics,
+    every moment and every update within the world's limit, and the
+    expert weights' partial-sum gradients laid out as their parameters
+    before the optimizer reads them (`train_step._laid_out_as`)."""
+    got = gloo_world["train_step"]
+    assert got["n"] > 0 and got["relaid"] > 0, got
+    assert got["diff"][1] <= TOL, got
 
 
 def check_training_scan(results: dict, arch: str, table: str) -> None:

@@ -17,7 +17,9 @@ the ranks also call the kernels' entries (`kernels.ops`) on `DTensor`s
 laid out whole (replicated; batch on ``data`` and heads on ``model``) and
 split on a sequence dim, and record each result's largest difference from
 the plain version on the logical inputs, or the error raised; and split a
-batch split on ``data`` into microbatches (`train_step._split_batch`). The module
+batch split on ``data`` into microbatches (`train_step._split_batch`), and
+run one train step of a reduced MoE config on the mesh and without it
+(`train_step_checks`). The module
 holds no test of its own: pytest imports it and collects nothing.
 """
 
@@ -214,6 +216,57 @@ def ops_checks(mesh) -> dict:
     return out
 
 
+def train_step_checks(mesh) -> dict:
+    """One `build_train_step` step of reduced granite-moe-3b-a800m (an MoE
+    config: its expert weights' gradients come out of the backward pass
+    as partial sums over the batch's axis) laid out by TRAIN_RULES, in fp32
+    activations, against the same step with no mesh: the largest
+    difference of the loss, the gradient norm, every moment and every
+    update (p_new - p), and how many gradients were laid out anew as
+    their parameters (`train_step._laid_out_as`)."""
+    from repro_torch.train import AdamWConfig, TrainState, build_train_step, init_state
+    from repro_torch.train import train_step as TS
+
+    model = make_model(get_config("granite-moe-3b-a800m").reduced())
+    params = model.init(0, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, model.cfg.vocab_size, (BATCH, SEQ + 1)))
+    relaid = []
+    real = TS._laid_out_as
+
+    def counted(g, p):
+        out = real(g, p)
+        relaid.append(out is not g)
+        return out
+
+    def step(rules):
+        p = params if rules is None else reshard_params(params, model.spec(), rules)
+        batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:]}
+        if rules is not None:
+            batch = {k: distribute_tensor(v, mesh, rules.sharding(
+                ("batch", None), tuple(v.shape)).placements, src_data_rank=None)
+                for k, v in batch.items()}
+        with use_rules(rules):
+            new, metrics = build_train_step(model, AdamWConfig())(TrainState(p, init_state(p)),
+                                                                  batch)
+
+        def full(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        return ([full(v) for v in metrics.values()]
+                + [full(a) - full(b) for a, b in zip(T.flatten(new.params), T.flatten(p))]
+                + [full(t) for t in T.flatten(new.opt)])
+
+    TS._laid_out_as = counted
+    try:
+        got = step(ShardingRules(mesh, dict(TRAIN_RULES)))
+    finally:
+        TS._laid_out_as = real
+    want = step(None)
+    return {"diff": max((diff(a, b) for a, b in zip(got, want)), key=lambda x: x[1]),
+            "n": len(got), "relaid": sum(relaid)}
+
+
 def run(names: list[str], with_ops: bool) -> dict:
     L.COMPUTE_DTYPE = torch.float32
     mesh = make_mesh_compat(MESH, ("data", "model"), device_type="cpu")
@@ -248,6 +301,7 @@ def run(names: list[str], with_ops: bool) -> dict:
         results[name]["seconds"] = time.perf_counter() - t0
     if with_ops:
         results["ops"] = ops_checks(mesh)
+        results["train_step"] = train_step_checks(mesh)
     return results
 
 
