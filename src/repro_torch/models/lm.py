@@ -122,20 +122,24 @@ def rounded_to(value: float, dtype: torch.dtype) -> float:
 
 def whole_along_d(h: torch.Tensor) -> torch.Tensor:
     """A normed hidden state that feeds products (a block's input, the
-    final norm's output), under autograd whole along d on every rank (its
+    final norm's output), under a mesh whole along d on every rank (its
     batch split as the rules split it). Not a `constrain` (the reference
     has none here): the residual stream is split along d on the tensor
     axis (``residual``), so each product of it would give a partial sum,
     which `DTensor`, weighing communication alone, resolves by a
-    reduce-scatter onto the batch dim over the tensor axis. Where a rank
-    holds fewer rows than that axis has ranks (the 2 x 16 x 16 mesh's
-    train cells: 8 over 16) the split is uneven, and the backward pass's
-    flatten of it is a strided shard that `DTensor` plans for minutes a
-    product. Gathered first, every product is split by its output columns
-    instead. Inference keeps its layouts."""
+    reduce-scatter onto the sequence or the batch over the tensor axis,
+    gathered back before the next product: the MLP's hidden state moved at
+    d_ff width (smollm-2l prefill_32k on 16 x 16: (2, 2048, 1536) bf16
+    reduce-scatters and (32, 2048, 1536) all-gathers, 2.01e8 B each),
+    where the reference gathers the d-wide input once. A decode step moves
+    less gathered too (granite-2l decode_32k 3.07e7 to 1.31e7 B a chip,
+    the reference's 6.21e7). Where a rank holds fewer rows than that axis
+    has ranks (the 2 x 16 x 16 mesh's train cells: 8 over 16) the split is
+    uneven, and the backward pass's flatten of it is a strided shard that
+    `DTensor` plans for minutes a product. Gathered first, every product
+    is split by its output columns instead."""
     rules = current_rules()
-    if not (isinstance(h, DTensor) and torch.is_grad_enabled() and h.requires_grad
-            and rules is not None and rules.mesh is not None):
+    if not (isinstance(h, DTensor) and rules is not None and rules.mesh is not None):
         return h
     return h.redistribute(h.device_mesh,
                           rules.sharding(("batch", None, None), tuple(h.shape)).placements)

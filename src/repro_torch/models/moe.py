@@ -14,9 +14,9 @@ out where the reference's `constrain` calls put them (experts on
 gather and scatter indexes within a batch row, so a row's routing stays on
 the ranks that hold the row. Where the experts are split, each rank
 gathers (`_dispatch`) and combines (`_combine_local_slots`) only its own
-experts' slots, and in training the expert weights are gathered over the
-rows' axes (`_gathered_over_rows`), as the reference's partitioner lays
-them out.
+experts' slots, and in training and prefill the expert weights are
+gathered over the rows' axes (`_gathered_over_rows`), as the reference's
+partitioner lays them out.
 
 Where a literal port would differ from the reference:
 - router logits are fp32 products of operands in the activations' dtype
@@ -41,7 +41,6 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models.layers import _act, _reduced
 from repro_torch.models.spec import ParamSpec
 from repro_torch.sharding.rules import (
@@ -102,15 +101,18 @@ def _experts(p: dict, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
 
 def _gathered_over_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The expert weight `w` (E, K, N) of ``bmm(x, w)``, `x` (E, R, K),
-    under autograd whole on every mesh dim that splits the rows R of `x`:
-    the FSDP weight gathered at its use, as the reference's partitioner
-    gathers it, and its gradient reduce-scattered back. Not a `constrain`
-    (the reference has none here): `DTensor`, weighing communication
-    alone, otherwise splits the contraction over that mesh dim and
+    whole on every mesh dim that splits the rows R of `x` wherever the
+    rows outnumber the contraction (R > K: training, prefill): the FSDP
+    weight gathered at its use, as the reference's partitioner gathers it,
+    and its gradient reduce-scattered back. Not a `constrain` (the
+    reference has none here): `DTensor`, weighing communication alone,
+    otherwise splits the contraction over that mesh dim and
     reduce-scatters the (E, R, N) partial sums of every row onto the rows,
-    16 times a rank's share of the product's output (jamba: (1, 163840,
-    24576) a product)."""
-    if not (isinstance(w, DTensor) and isinstance(x, DTensor)) or not ops.needs_grad(x, w):
+    R / K times the weight's bytes (jamba-8l prefill_32k on 16 x 16: a
+    (1, 10240, 24576) bf16 reduce-scatter, 8.05e9 B, a product). A decode
+    step's rows (one slot an expert a row) are fewer than K, and there
+    the partial sums move less than the weight would."""
+    if not (isinstance(w, DTensor) and isinstance(x, DTensor)) or x.shape[1] <= w.shape[1]:
         return w
     rows = {m for m, q in enumerate(x.placements) if isinstance(q, Shard) and q.dim % x.ndim == 1}
     placements = [Replicate() if m in rows else p for m, p in enumerate(w.placements)]
@@ -156,14 +158,14 @@ def _rows_merged(h: torch.Tensor) -> torch.Tensor:
 def _dispatch(xp: torch.Tensor, slot_tok: torch.Tensor, e: int) -> torch.Tensor:
     """Each slot's token row: xp (B, S + 1, D), the zero row last, at
     slot_tok (B, n_slots) -> (B, n_slots, D). Where a mesh splits the
-    experts and the rows are whole along D (training's), each rank gathers
-    its own slots' rows, laid out as the slots' experts will be, and the
-    gradient is each rank's scatter-add of its slots into the tokens, a
-    partial sum that the backward pass reduces, as the reference's
-    partitioner reduces it. `DTensor` would gather the rows of every slot
-    on each rank and, in the backward pass, gather every slot's gradient:
-    (B, E · capacity, D) a layer, 16 times a rank's share (granite: 2.4 GB
-    a rank)."""
+    experts, the rows are whole along D (`lm.whole_along_d`): each rank
+    gathers its own slots' rows, laid out as the slots' experts will be,
+    and the gradient is each rank's scatter-add of its slots into the
+    tokens, a partial sum that the backward pass reduces, as the
+    reference's partitioner reduces it. `DTensor` would gather the rows of
+    every slot on each rank and, in the backward pass, gather every slot's
+    gradient: (B, E · capacity, D) a layer, 16 times a rank's share
+    (granite: 2.4 GB a rank)."""
     b, _, d = xp.shape
     n_slots = slot_tok.shape[1]
     rules = current_rules()

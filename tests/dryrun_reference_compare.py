@@ -124,10 +124,11 @@ def _port_top(gm, k: int) -> dict:
                                 for r in cost.top_collectives[:k]]}
 
 
-def compare_cell(arch: str, shape: str, layers: int, microbatches: int, multi_pod: bool,
-                 top: int = 0) -> dict:
-    """Both sides of one cell in this process's care: the reference in a
-    subprocess started first, the port here while it runs."""
+def lower_both(arch: str, shape: str, layers: int, microbatches: int = 1,
+               multi_pod: bool = False, top: int = 0) -> tuple[dict, object, dict]:
+    """(the port's `lower_cell` record, its graph, the reference's record
+    with its dominant term) of one cell: the reference in a subprocess
+    started first, the port in this process while it runs."""
     ref_proc = subprocess.Popen(
         [sys.executable, "-c", REFERENCE, arch, shape, str(layers), str(microbatches),
          str(int(multi_pod)), str(top)],
@@ -144,11 +145,6 @@ def compare_cell(arch: str, shape: str, layers: int, microbatches: int, multi_po
     try:
         rec, gm = lower_cell(name, shape, multi_pod=multi_pod, microbatches=microbatches,
                              verbose=False)
-        port = {"flops": rec["flops_per_chip"], "coll": rec["coll_bytes_per_chip"],
-                "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"],
-                "dominant": rec["dominant"]}
-        if top:
-            port.update(_port_top(gm, top))
         out, err = ref_proc.communicate(timeout=3600)
     finally:
         if ref_proc.poll() is None:
@@ -158,6 +154,42 @@ def compare_cell(arch: str, shape: str, layers: int, microbatches: int, multi_po
         raise RuntimeError(f"reference {name} {shape}: {err[-3000:]}")
     ref = json.loads(out.strip().splitlines()[-1])
     ref["dominant"] = dominant(ref["flops"], ref["coll"], ref["bytes"])
+    return rec, gm, ref
+
+
+def collectives(gm) -> list[tuple[str, tuple, int]]:
+    """(kind, the shape it moves, the elements it moves) of every
+    collective in the port's graph: a reduce-scatter's operand, any
+    other's output. A functional all-gather stacks its shards on dim 0."""
+    import torch
+
+    from repro_torch.roofline.graph_parse import COLLECTIVES
+
+    out = []
+    for n in gm.graph.nodes:
+        target = n.target
+        if not (n.op == "call_function" and isinstance(target, torch._ops.OpOverload)
+                and target.namespace == "_c10d_functional"):
+            continue
+        kind = COLLECTIVES.get(target._schema.name.split("::")[-1])
+        if kind is None:
+            continue
+        val = n.args[0].meta["val"] if kind == "reduce-scatter" else n.meta.get("val")
+        if isinstance(val, torch.Tensor):
+            out.append((kind, tuple(val.shape), val.numel()))
+    return out
+
+
+def compare_cell(arch: str, shape: str, layers: int, microbatches: int, multi_pod: bool,
+                 top: int = 0) -> dict:
+    """Both sides of one cell, and the port's counts over the reference's."""
+    rec, gm, ref = lower_both(arch, shape, layers, microbatches, multi_pod, top)
+    port = {"flops": rec["flops_per_chip"], "coll": rec["coll_bytes_per_chip"],
+            "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"],
+            "dominant": rec["dominant"]}
+    if top:
+        port.update(_port_top(gm, top))
+    name = f"{arch}-{layers}l" if layers else arch
     keys = ("flops", "coll", "bytes", "model_flops")
     return {"cell": f"{name} {shape} microbatches {microbatches}", "arch": arch,
             "shape": shape, "layers": layers,

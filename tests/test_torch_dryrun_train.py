@@ -25,69 +25,23 @@ The limits are PERF.md §6's, written there before the repairs.
 
 from __future__ import annotations
 
-import dataclasses
-import json
-import os
-import subprocess
-import sys
-
 import pytest
-import torch
 
-from repro_torch.configs import SHAPES, base, get_config
-from repro_torch.launch import dryrun
-from repro_torch.roofline.graph_parse import COLLECTIVES
-from dryrun_reference_compare import REFERENCE, dominant
+from repro_torch.configs import SHAPES, get_config
+from dryrun_reference_compare import collectives, lower_both
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COLL_LIMIT = 2.0          # the port's collective bytes a chip over the reference's
 LOSS_CHUNK = 512
 CELLS = ["smollm-135m", "granite-moe-3b-a800m"]
 _traced: dict = {}
 
 
-def _cell(arch: str) -> tuple[dict, torch.fx.GraphModule, dict]:
+def _cell(arch: str) -> tuple:
     """(the port's record, its graph, the reference's record) of `arch`
     cut to 2 layers, train_4k on 16 x 16; traced once per process."""
     if arch not in _traced:
-        env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"), "JAX_PLATFORMS": "cpu"}
-        ref = subprocess.Popen([sys.executable, "-c", REFERENCE, arch, "train_4k", "2", "1", "0"],
-                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-                               cwd=REPO)
-        try:
-            name = f"{arch}-2l"
-            if name not in base.all_configs():
-                base.register(dataclasses.replace(get_config(arch), num_layers=2, name=name))
-            got, gm = dryrun.lower_cell(name, "train_4k", verbose=False)
-            out, err = ref.communicate(timeout=600)
-        finally:
-            if ref.poll() is None:
-                ref.kill()
-                ref.communicate()
-        assert ref.returncode == 0, err[-3000:]
-        want = json.loads(out.strip().splitlines()[-1])
-        want["dominant"] = dominant(want["flops"], want["coll"], want["bytes"])
-        _traced[arch] = (got, gm, want)
+        _traced[arch] = lower_both(arch, "train_4k", 2)
     return _traced[arch]
-
-
-def _collectives(gm) -> list[tuple[str, tuple, int]]:
-    """(kind, the shape it moves, the elements it moves) of every
-    collective in the graph: a reduce-scatter's operand, any other's
-    output."""
-    out = []
-    for n in gm.graph.nodes:
-        target = n.target
-        if not (n.op == "call_function" and isinstance(target, torch._ops.OpOverload)
-                and target.namespace == "_c10d_functional"):
-            continue
-        kind = COLLECTIVES.get(target._schema.name.split("::")[-1])
-        if kind is None:
-            continue
-        val = n.args[0].meta["val"] if kind == "reduce-scatter" else n.meta.get("val")
-        if isinstance(val, torch.Tensor):
-            out.append((kind, tuple(val.shape), val.numel()))
-    return out
 
 
 @pytest.mark.parametrize("arch", CELLS)
@@ -115,7 +69,7 @@ def test_train_cell_moves_no_logits_or_scores():
     vocab = cfg.padded_vocab()
     logits = rows * LOSS_CHUNK * vocab
     scores = rows * cfg.num_kv_heads * 512 * (cfg.num_heads // cfg.num_kv_heads) * seq
-    moved = _collectives(gm)
+    moved = collectives(gm)
     assert moved, "no collective traced"
     assert [m for m in moved if m[2] >= min(logits, scores)] == []
     assert [m for m in moved if m[1][-2:] in ((LOSS_CHUNK, vocab), (LOSS_CHUNK, vocab // 16))] == []
