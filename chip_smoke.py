@@ -150,13 +150,16 @@ Phases, each of which exits non-zero on a failed check:
      prefill_32k, decode_32k and (6c) train_4k (the whole train step) on
      the 16 x 16 mesh (a ``fake`` group of 256 ranks, nothing allocated),
      their report lines and seconds printed;
-  7. a JSON line of the kernels' numbers, then the result line.
+  7. each phase's seconds on the host clock, a line each (``phase NAME:
+     S s``), then a JSON line of the kernels' numbers, then the result
+     line.
 
 Needs a CUDA device and the repository's src/ beside this file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -340,6 +343,20 @@ def ptxas_summary(path: str) -> list[str]:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+PHASE_SECONDS: dict[str, float] = {}
+
+
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Time the block on the host clock into `PHASE_SECONDS[name]`; `main`
+    prints them before its last two lines."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t
 
 
 def cuda_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
@@ -2868,12 +2885,13 @@ def main() -> None:
         mod._library()
         return time.perf_counter() - t
 
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        builds = {name: pool.submit(timed_build, mod) for name, mod in kernels.items()}
-        built = {name: f.result() for name, f in builds.items()}
+    t_start = time.perf_counter()
+    with phase_clock("build"):
+        with ThreadPoolExecutor(len(kernels)) as pool:
+            builds = {name: pool.submit(timed_build, mod) for name, mod in kernels.items()}
+            built = {name: f.result() for name, f in builds.items()}
     print(f"build: {', '.join(f'{n} in {t:.1f}s' for n, t in built.items())}; "
-          f"{time.perf_counter() - t0:.1f}s in all")
+          f"{PHASE_SECONDS['build']:.1f}s in all")
     for name in kernels:
         for line in ptxas_summary(os.path.join(ROOT, "build", f"{name}.ptxas.txt")):
             print(f"ptxas {name}: {line}")
@@ -2886,30 +2904,36 @@ def main() -> None:
         print(f"occupancy ssd {dt} P 64, N 128, Q 256: {smem} bytes of shared memory, "
               f"{blocks} CTAs per SM")
 
-    flash = phase_kernels(torch, fa)
-    scan = phase_ssd_kernel(torch, ssd)
+    with phase_clock("kernels"):
+        flash = phase_kernels(torch, fa)
+        scan = phase_ssd_kernel(torch, ssd)
 
-    cfg = get_config("smollm-135m")
-    model = make_model(cfg)
-    params = model.init(0, device="cuda")
-    flash["launches"], tokens = phase_serve(torch, np, cfg, model, params, kernels,
-                                            "flash_attention")
-    phase_prefill_vs_decode(torch, np, fa, cfg, model, params)
-    phase_restore(torch, np, cfg, model, params, kernels, tokens)
-    del params
+    with phase_clock("serve smollm-135m, restore"):
+        cfg = get_config("smollm-135m")
+        model = make_model(cfg)
+        params = model.init(0, device="cuda")
+        flash["launches"], tokens = phase_serve(torch, np, cfg, model, params, kernels,
+                                                "flash_attention")
+        phase_prefill_vs_decode(torch, np, fa, cfg, model, params)
+        phase_restore(torch, np, cfg, model, params, kernels, tokens)
+        del params
 
-    cfg = get_config("mamba2-1.3b")
-    model = make_model(cfg)
-    params = model.init(0, device="cuda")
-    print(f"{cfg.name}: {model.param_count() / 1e9:.3f} B parameters, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
-    scan["launches"], _ = phase_serve(torch, np, cfg, model, params, kernels, "ssd_scan")
-    phase_fp32_prefill_vs_decode(torch, np, ssd, cfg, model, params)
-    del params
+    with phase_clock("serve mamba2-1.3b"):
+        cfg = get_config("mamba2-1.3b")
+        model = make_model(cfg)
+        params = model.init(0, device="cuda")
+        print(f"{cfg.name}: {model.param_count() / 1e9:.3f} B parameters, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+        scan["launches"], _ = phase_serve(torch, np, cfg, model, params, kernels, "ssd_scan")
+        phase_fp32_prefill_vs_decode(torch, np, ssd, cfg, model, params)
+        del params
 
-    granite, jamba = phase_moe(torch, np, kernels)
-    whisper = phase_whisper(torch, np, kernels)
-    codeqwen = phase_codeqwen(torch, np, kernels)
+    with phase_clock("moe"):
+        granite, jamba = phase_moe(torch, np, kernels)
+    with phase_clock("whisper"):
+        whisper = phase_whisper(torch, np, kernels)
+    with phase_clock("codeqwen int8"):
+        codeqwen = phase_codeqwen(torch, np, kernels)
     # phase_serve fails unless granite's serve run launched no scan, and
     # phase_whisper and phase_codeqwen unless whisper's and codeqwen's did not.
     flash["launches_by_config"] = {"smollm-135m": flash["launches"],
@@ -2921,28 +2945,35 @@ def main() -> None:
                                   "jamba-1.5-large-398b-reduced": jamba["ssd_scan"],
                                   "whisper-large-v3": 0, "codeqwen1.5-7b-int8": 0}
 
-    phase_train(torch, np, kernels)
-    phase_usecases(torch, np)
-    olmo, flash["olmo_wave"] = phase_mesh(torch, np, fa, kernels)
+    with phase_clock("train"):
+        phase_train(torch, np, kernels)
+    with phase_clock("use cases"):
+        phase_usecases(torch, np)
+    with phase_clock("mesh"):
+        olmo, flash["olmo_wave"] = phase_mesh(torch, np, fa, kernels)
     flash["launches_by_config"]["olmo-1b"] = olmo
     scan["launches_by_config"]["olmo-1b"] = 0    # phase_mesh fails unless it was 0
     # The dry-run's processes trace on the host while the mesh phase's
     # examples run (they print no time that the tracing would disturb).
     dry = start_dryruns()
-    t0 = time.perf_counter()
-    run_examples([("elastic_restore", "OK", ("--device", "cuda")),
-                  ("elastic_restore", "OK", ("--device", "cpu"))])
-    print(f"mesh phase examples: {time.perf_counter() - t0:.1f} s")
-    sharded = phase_sharded(torch, np, fa, ssd, kernels, dry)
+    with phase_clock("mesh examples"):
+        run_examples([("elastic_restore", "OK", ("--device", "cuda")),
+                      ("elastic_restore", "OK", ("--device", "cpu"))])
+    print(f"mesh phase examples: {PHASE_SECONDS['mesh examples']:.1f} s")
+    with phase_clock("sharded"):
+        sharded = phase_sharded(torch, np, fa, ssd, kernels, dry)
     for name, counts in sharded.items():
         flash["launches_by_config"][name] = counts["flash_attention"]
         scan["launches_by_config"][name] = counts["ssd_scan"]
+    PHASE_SECONDS["all"] = time.perf_counter() - t_start
 
     rows = [flash, scan]
     for row in rows:
         for key, val in row.items():
             if isinstance(val, float) and not math.isfinite(val):
                 fail(f"{row['name']}: kernel number {key} is not finite")
+    for name, secs in PHASE_SECONDS.items():
+        print(f"phase {name}: {secs:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -135,8 +135,8 @@ def main(argv: list[str] | None = None) -> np.ndarray:
     else:
         caches = LM.make_stack_cache(cfg, b, max_len, device=device)
         h, caches, _ = LM.lm_hidden(params, cfg, inputs, caches=caches, update_cache=True,
-                                    q_chunk=min(512, s))
-        logits = LM.logits_from_hidden(params, cfg, h[:, -1:, :])[:, 0]
+                                    q_chunk=min(512, s), last=True)
+        logits = LM.logits_from_hidden(params, cfg, h)[:, 0]
     _sync(device)
     dt = time.perf_counter() - t0
     if cfg.is_encdec:

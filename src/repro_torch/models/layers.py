@@ -315,18 +315,33 @@ def _batch_only(t: torch.Tensor) -> torch.Tensor:
     return t.redistribute(t.device_mesh, placements)
 
 
-def _heads_split(o: torch.Tensor) -> torch.Tensor:
-    """The attention output (B, S, H, D) laid out as the ambient rules lay
-    out ``("batch", None, "heads", None)``, its partial sums reduced there.
-    Not a `constrain` (the reference has none here): it steers `DTensor`,
-    whose choice minimizes communication alone, from computing the output
-    projection whole on every rank of the tensor axis towards the
-    contraction split over heads that ``wo`` is sharded by."""
+def _context_for_wo(o: torch.Tensor) -> torch.Tensor:
+    """The attention output (B, S, H, D) as (B, S, H * D) for the output
+    projection, split as ``wo``'s contraction is. Where the ambient rules
+    split ``heads``, it is laid out as ``("batch", None, "heads", None)``.
+    Elsewhere (the kv_seq mode: the heads do not split the tensor axis) a
+    partial sum over the key positions' ranks is reduce-scattered onto the
+    merged H * D columns, the rows of ``wo`` that each rank then multiplies,
+    and the product's partial sums are reduced once, onto the residual
+    stream. Not a `constrain` (the reference has none here): `DTensor`,
+    weighing communication alone, all-reduces the whole context first
+    (whisper-2l prefill_32k on 16 x 16: a (2, 32768, 20, 64) bf16
+    all-reduce a layer) or reduce-scatters it onto the sequence and
+    gathers it back (granite-2l: (2, 2048, 24, 64) and (32, 2048, 24, 64),
+    2.01e8 B each), where the reference's partitioner reduces it once."""
     rules = current_rules()
     if not isinstance(o, DTensor) or rules is None or rules.mesh is None:
-        return o
-    placements = rules.sharding(("batch", None, "heads", None), tuple(o.shape)).placements
-    return o.redistribute(o.device_mesh, placements)
+        return merge_dims(o, 2, 3)
+    heads = rules.sharding(("batch", None, "heads", None), tuple(o.shape)).placements
+    if any(isinstance(p, Shard) and p.dim == 2 for p in heads) or not any(
+            p.is_partial() for p in o.placements):
+        return merge_dims(o.redistribute(o.device_mesh, heads), 2, 3)
+    mesh = o.device_mesh
+    o = _rank_by_rank(lambda t: t.flatten(2, 3), o)
+    cols = o.shape[2]
+    return o.redistribute(mesh, [
+        (Shard(2) if cols % mesh.size(m) == 0 else Replicate()) if p.is_partial() else p
+        for m, p in enumerate(o.placements)])
 
 
 def _contraction_split(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -573,8 +588,26 @@ def _attn_core(
         out = torch.cat(chunks, dim=2)
     if head_mode:
         return out.transpose(1, 2).to(q.dtype)
-    out = split_dim(out, 2, (sq, g)).permute(0, 2, 1, 3, 4)             # (B, S_q, H_kv, g, D)
-    return merge_dims(out, 2, 3).to(q.dtype)
+
+    def heads_last(t: torch.Tensor) -> torch.Tensor:
+        """(B, H_kv, S_q * g, D) -> (B, S_q, H_kv * g, D)."""
+        t = split_dim(t, 2, (sq, g)).permute(0, 2, 1, 3, 4)             # (B, S_q, H_kv, g, D)
+        return merge_dims(t, 2, 3)
+
+    return _rank_by_rank(heads_last, out).to(q.dtype)
+
+
+def _rank_by_rank(fn, t: torch.Tensor) -> torch.Tensor:
+    """``fn(t)`` for a reshape `fn` that keeps dim 0. A `DTensor` split on
+    its batch dim at most goes rank by rank through `local_map`, so that a
+    partial sum (the kv_seq mode's context) stays one: `DTensor` reduces a
+    partial sum before a reshape that merges two dims (granite-2l
+    prefill_32k: onto the sequence, gathered back after)."""
+    if not isinstance(t, DTensor) or any(isinstance(p, Shard) and p.dim % t.ndim
+                                         for p in t.placements):
+        return fn(t)
+    return local_map(fn, out_placements=list(t.placements), in_placements=(t.placements,),
+                     device_mesh=t.device_mesh)(t)
 
 
 def _gathered_over_batch(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -624,12 +657,52 @@ def _plus_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y + b
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _project(x: torch.Tensor, w: torch.Tensor, *, kv_seq: bool = False) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads, the
-    weight gathered over the batch's mesh axes."""
+    weight gathered over the batch's mesh axes. With `kv_seq` (k and v for
+    the kv_seq mode) the output is laid out along the sequence where that
+    mode will put it (`_columns_to_sequence`)."""
     h, k = w.shape[1], w.shape[2]
     w = _gathered_over_batch(merge_dims(w.to(x.dtype), 1, 2), x)
-    return split_dim(x @ w, -1, (h, k))
+    y = x @ w
+    if kv_seq:
+        y = _columns_to_sequence(y)
+    return split_dim(y, -1, (h, k))
+
+
+def _columns_to_sequence(y: torch.Tensor) -> torch.Tensor:
+    """A projection's output (B, S, H * D), split along its columns on the
+    mesh dim that ``kv_seq`` resolves to, split along S there instead: one
+    all-to-all, each rank sending every other one the rows it will hold of
+    its columns. Not a `constrain` (the reference has none here): where
+    the heads do not split over that dim `DTensor` gathers the columns
+    whole on every rank and keeps a slice of the sequence after
+    (granite-2l prefill_32k on 16 x 16: k and v each a (32, 32768, 32)
+    all-gather, 16 times the all-to-all's bytes), and on a CPU group it
+    moves a split between dims so wherever it does."""
+    rules = current_rules()
+    if not isinstance(y, DTensor) or rules is None or rules.mesh is None:
+        return y
+    mesh = y.device_mesh
+    target = rules.sharding(("batch", "kv_seq", None), tuple(y.shape)).placements
+    moved = [m for m, (p, t) in enumerate(zip(y.placements, target))
+             if isinstance(p, Shard) and p.dim % y.ndim == 2 and t == Shard(1)
+             and mesh.size(m) > 1]
+    if len(moved) != 1 or any(isinstance(p, Shard) and p.dim % y.ndim == 1
+                              for p in y.placements):
+        return y
+    m = moved[0]
+    n = mesh.size(m)
+
+    def swap(t: torch.Tensor) -> torch.Tensor:
+        b, s, c = t.shape
+        blocks = t.reshape(b, n, s // n, c).transpose(0, 1).reshape(n * b, s // n, c)
+        got = funcol.wait_tensor(funcol.all_to_all_single_autograd(blocks, None, None, (mesh, m)))
+        return got.reshape(n, b, s // n, c).permute(1, 2, 0, 3).reshape(b, s // n, n * c)
+
+    out = [Shard(1) if k == m else p for k, p in enumerate(y.placements)]
+    return local_map(swap, out_placements=out, in_placements=(y.placements,),
+                     device_mesh=mesh)(y)
 
 
 def attention(
@@ -648,7 +721,28 @@ def attention(
     caller of the JAX package's `attention`. With `kv_source` (training's
     cross-attention) k/v come from that sequence, unmasked; a cache passed
     without `update_cache` (the decoder's cross cache at prefill and decode)
-    is read as it is."""
+    is read as it is. `attention_context`, then `attention_output`."""
+    o, wo, new_cache = attention_context(p, cfg, x, start=start, causal=causal,
+                                         kv_source=kv_source, cache=cache,
+                                         update_cache=update_cache, q_chunk=q_chunk)
+    return attention_output(p, o @ wo), new_cache
+
+
+def attention_context(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    start: int = 0,
+    causal: bool = True,
+    kv_source: torch.Tensor | None = None,
+    cache: KVCache | None = None,
+    update_cache: bool = False,
+    q_chunk: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor, KVCache | None]:
+    """`attention` up to its output projection: (the context (B, S, H * D)
+    laid out for ``wo``'s contraction, ``wo`` (H * D, d) in x's dtype, the
+    cache)."""
     rope = cfg.use_rope and kv_source is None
     b, s, _ = x.shape
     positions = torch.arange(start, start + s, device=x.device)
@@ -669,7 +763,8 @@ def attention(
         k, v, kv_len = cache.k, cache.v, cache.length
         new_cache = cache
     else:
-        k, v = _kv(p, cfg, kv_source if kv_source is not None else x)
+        k, v = _kv(p, cfg, kv_source if kv_source is not None else x,
+                   kv_seq=not (cache is None and _head_shardable(cfg.num_heads)))
         if rope:
             k = apply_rope(k, positions, cfg.rope_theta)
         if cache is not None:
@@ -711,16 +806,21 @@ def attention(
                          q_offset=start, kv_valid_len=kv_len, q_chunk=q_chunk,
                          allow_head_shard=cache is None)
     wo = merge_dims(p["wo"].to(x.dtype), 0, 1)
-    y = _contraction_split(merge_dims(_heads_split(out), 2, 3), wo) @ wo
+    return _contraction_split(_context_for_wo(out), wo), wo, new_cache
+
+
+def attention_output(p: dict, y: torch.Tensor) -> torch.Tensor:
+    """The output projection `y` (``o @ wo`` of `attention_context`'s
+    context), its bias added, laid out on the residual stream."""
     if "bo" in p:
-        y = y + p["bo"].to(x.dtype)
-    y = constrain(y, "batch", None, "residual")
-    return y, new_cache
+        y = y + p["bo"].to(y.dtype)
+    return constrain(y, "batch", None, "residual")
 
 
-def _kv(p: dict, cfg: ModelConfig, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    k = _project(src, p["wk"])
-    v = _project(src, p["wv"])
+def _kv(p: dict, cfg: ModelConfig, src: torch.Tensor, *,
+        kv_seq: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    k = _project(src, p["wk"], kv_seq=kv_seq)
+    v = _project(src, p["wv"], kv_seq=kv_seq)
     if "bk" in p:
         k = _plus_bias(k, p["bk"].to(src.dtype))
         v = _plus_bias(v, p["bv"].to(src.dtype))
@@ -734,7 +834,7 @@ def compute_kv(p: dict, cfg: ModelConfig, src: torch.Tensor) -> KVCache:
     prefill and decode), in `src`'s dtype, which is the activations' dtype
     as `make_cache`'s default is, laid out on ``kv_seq``; its host `length`
     is the source length."""
-    k, v = _kv(p, cfg, src)
+    k, v = _kv(p, cfg, src, kv_seq=True)
     k = constrain(k, "batch", "kv_seq", None, None)
     v = constrain(v, "batch", "kv_seq", None, None)
     return KVCache(k=k, v=v, length=src.shape[1])
@@ -787,6 +887,13 @@ def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h, w_down = mlp_hidden(p, cfg, x)
+    return mlp_output(p, h @ w_down)
+
+
+def mlp_hidden(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`mlp` up to its down projection: (the hidden state, laid out on
+    ``tp``, ``w_down`` in x's dtype)."""
     h = x @ p["w_up"].to(x.dtype)
     if "b_up" in p:
         h = _plus_bias(h, p["b_up"].to(x.dtype))
@@ -795,8 +902,12 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = _act(cfg, gate) * h
     else:
         h = _act(cfg, h)
-    h = constrain(h, "batch", None, "tp")
-    y = h @ p["w_down"].to(x.dtype)
+    return constrain(h, "batch", None, "tp"), p["w_down"].to(x.dtype)
+
+
+def mlp_output(p: dict, y: torch.Tensor) -> torch.Tensor:
+    """The down projection `y` of `mlp_hidden`'s hidden state, its bias
+    added, laid out on the residual stream."""
     if "b_down" in p:
-        y = y + p["b_down"].to(x.dtype)
+        y = y + p["b_down"].to(y.dtype)
     return constrain(y, "batch", None, "residual")

@@ -29,7 +29,7 @@ import dataclasses
 import struct
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDef, ModelConfig
@@ -41,6 +41,7 @@ from repro_torch.models.spec import Ax, abstract_like, stacked
 from repro_torch.sharding.rules import (
     constrain,
     current_rules,
+    relaid,
     under_current_rules,
 )
 
@@ -122,27 +123,37 @@ def rounded_to(value: float, dtype: torch.dtype) -> float:
 
 def whole_along_d(h: torch.Tensor) -> torch.Tensor:
     """A normed hidden state that feeds products (a block's input, the
-    final norm's output), under a mesh whole along d on every rank (its
-    batch split as the rules split it). Not a `constrain` (the reference
-    has none here): the residual stream is split along d on the tensor
-    axis (``residual``), so each product of it would give a partial sum,
-    which `DTensor`, weighing communication alone, resolves by a
-    reduce-scatter onto the sequence or the batch over the tensor axis,
-    gathered back before the next product: the MLP's hidden state moved at
-    d_ff width (smollm-2l prefill_32k on 16 x 16: (2, 2048, 1536) bf16
-    reduce-scatters and (32, 2048, 1536) all-gathers, 2.01e8 B each),
-    where the reference gathers the d-wide input once. A decode step moves
-    less gathered too (granite-2l decode_32k 3.07e7 to 1.31e7 B a chip,
-    the reference's 6.21e7). Where a rank holds fewer rows than that axis
-    has ranks (the 2 x 16 x 16 mesh's train cells: 8 over 16) the split is
-    uneven, and the backward pass's flatten of it is a strided shard that
-    `DTensor` plans for minutes a product. Gathered first, every product
-    is split by its output columns instead."""
+    final norm's output), under a mesh whole along d on every rank, its
+    batch split as the rules split it; where the batch leaves the FSDP
+    axes idle (a batch of 1), d split over them instead, as the products'
+    weights split their contraction (``("batch", None, "fsdp")``). Not a
+    `constrain` (the reference has none here): the residual stream is
+    split along d on the tensor axis (``residual``), so each product of it
+    would give a partial sum, which `DTensor`, weighing communication
+    alone, resolves by a reduce-scatter onto the sequence or the batch
+    over the tensor axis, gathered back before the next product: the MLP's
+    hidden state moved at d_ff width (smollm-2l prefill_32k on 16 x 16:
+    (2, 2048, 1536) bf16 reduce-scatters and (32, 2048, 1536) all-gathers,
+    2.01e8 B each), where the reference gathers the d-wide input once.
+    Where a rank holds fewer rows than that axis has ranks (the 2 x 16 x
+    16 mesh's train cells: 8 over 16) the split is uneven, and the
+    backward pass's flatten of it is a strided shard that `DTensor` plans
+    for minutes a product. Gathered first, every product is split by its
+    output columns instead. A batch of 1 gathers nothing: each rank of the
+    idle axes takes the slice of d its weight rows contract, by one
+    all-to-all (`sharding.rules.relaid`; mamba2-2l long_500k on 16 x 16:
+    (1, 1, 2048) gathers of 4 KB, 256 B now, as the reference's
+    partitioner permutes it), and the products' partial sums are reduced
+    over those axes, as with d whole."""
     rules = current_rules()
     if not (isinstance(h, DTensor) and rules is not None and rules.mesh is not None):
         return h
-    return h.redistribute(h.device_mesh,
-                          rules.sharding(("batch", None, None), tuple(h.shape)).placements)
+    target = rules.sharding(("batch", None, "fsdp"), tuple(h.shape)).placements
+    if sum(isinstance(p, Shard) and p.dim == 2 for p in target) > 1:
+        # Over two idle axes (pod and data) no one all-to-all moves the
+        # split, and `DTensor` would gather d whole first: whole it is.
+        target = rules.sharding(("batch", None, None), tuple(h.shape)).placements
+    return relaid(h, target)
 
 
 def block_fwd(
@@ -167,8 +178,11 @@ def block_fwd(
     rm = rounded_to(cfg.residual_multiplier, x.dtype)
 
     h = whole_along_d(L.apply_norm(p["norm1"], cfg, x))
+    # Cohere's parallel block with a dense FFN: both branches' inner work,
+    # then both last products (`products_saved_first`).
+    parallel = cfg.parallel_block and bd.mixer == "attn" and bd.ffn == "dense"
     if bd.mixer == "attn":
-        attn_out, kv = L.attention(
+        ctx, wo, kv = L.attention_context(
             p["attn"], cfg, h,
             start=start,
             causal=causal,
@@ -178,6 +192,12 @@ def block_fwd(
         )
         if kv is not None:
             new_cache["attn"] = kv
+        if parallel:
+            hid, w_down = L.mlp_hidden(p["ffn"], cfg, h)
+            y_attn, y_ffn = products_saved_first(ctx, wo, hid, w_down)
+            attn_out = L.attention_output(p["attn"], y_attn)
+        else:
+            attn_out = L.attention_output(p["attn"], ctx @ wo)
     else:
         attn_out, mc = S.mamba_block(
             p["mamba"], cfg, h,
@@ -190,7 +210,8 @@ def block_fwd(
     aux = None
     if cfg.parallel_block and bd.ffn is not None:
         # Cohere: attn and FFN both read the same normed input.
-        ffn_out, aux = _ffn(p["ffn"], cfg, bd, h)
+        ffn_out, aux = ((L.mlp_output(p["ffn"], y_ffn), None) if parallel
+                        else _ffn(p["ffn"], cfg, bd, h))
         x = x + rm * (attn_out + ffn_out)
         return x, new_cache, aux
 
@@ -214,6 +235,56 @@ def block_fwd(
         ffn_out, aux = _ffn(p["ffn"], cfg, bd, h2)
         x = x + rm * ffn_out
     return x, new_cache, aux
+
+
+class _SavedFirst(torch.autograd.Function):
+    """The identity on its tensors, which it saves for `_ProductsOfSaved`."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        ctx.save_for_backward(*tensors)
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return grads
+
+
+class _ProductsOfSaved(torch.autograd.Function):
+    """``(a @ b, c @ d)`` of `_SavedFirst`'s outputs, saving nothing: the
+    backward pass reads its operands from that node's saved tensors."""
+
+    @staticmethod
+    def forward(ctx, node, a, b, c, d):
+        ctx.node = node
+        return a @ b, c @ d
+
+    @staticmethod
+    def backward(ctx, g_ab, g_cd):
+        a, b, c, d = ctx.node.saved_tensors
+        return (None, *_matmul_grads(a, b, g_ab), *_matmul_grads(c, d, g_cd))
+
+
+def _matmul_grads(x: torch.Tensor, w: torch.Tensor,
+                  g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of ``x @ w`` (x (..., K), w (K, N)) given the output's
+    `g`, as autograd's matmul computes them."""
+    return g @ w.T, x.flatten(0, -2).T @ g.flatten(0, -2)
+
+
+def products_saved_first(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                         d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(a @ b, c @ d)``, where under autograd all four operands are saved
+    before either product runs. torch.utils.checkpoint stops a period's
+    recompute once every tensor the period saved is back: with each
+    product saving its own operands, the first of two last products would
+    run again in the backward pass (command-r-plus-2l train_4k: the
+    attention output projection, 1.01386x the reference's FLOPs, whose
+    remat drops it); saved first, neither does."""
+    if not ops.needs_grad(a, b, c, d):
+        return a @ b, c @ d
+    saved = _SavedFirst.apply(a, b, c, d)
+    return _ProductsOfSaved.apply(saved[0].grad_fn, *saved)
 
 
 def _ffn(p: dict, cfg: ModelConfig, bd: BlockDef,
@@ -400,10 +471,12 @@ def lm_inputs_to_hidden(p: dict, cfg: ModelConfig, inputs: torch.Tensor) -> torc
 def lm_hidden(
     p: dict, cfg: ModelConfig, inputs: torch.Tensor, *,
     start: int = 0, caches: dict | None = None, update_cache: bool = False,
-    q_chunk: int = 512, remat: bool = False,
+    q_chunk: int = 512, remat: bool = False, last: bool = False,
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Final-normed hidden states, the updated caches and the stack's MoE aux
-    loss. `start` is the global position of inputs[:, 0]."""
+    loss. `start` is the global position of inputs[:, 0]. With `last`, the
+    last position's alone (B, 1, D): a prefill's logits read no other, and
+    under a mesh only that position is gathered whole along d."""
     x = lm_inputs_to_hidden(p, cfg, inputs)
     x = constrain(x, "batch", None, "residual")
     x, new_caches, aux = stack_fwd(
@@ -414,6 +487,8 @@ def lm_hidden(
         q_chunk=q_chunk,
         remat=remat,
     )
+    if last:
+        x = x[:, -1:]
     return whole_along_d(L.apply_norm(p["final_norm"], cfg, x)), new_caches, aux
 
 
@@ -490,8 +565,8 @@ def lm_prefill(
     max_len = max_len if max_len is not None else s
     caches = make_stack_cache(cfg, b, max_len, device=inputs.device)
     h, caches, _ = lm_hidden(p, cfg, inputs, caches=caches, update_cache=True,
-                             q_chunk=q_chunk)
-    return logits_from_hidden(p, cfg, h[:, -1:, :])[:, 0], caches
+                             q_chunk=q_chunk, last=True)
+    return logits_from_hidden(p, cfg, h)[:, 0], caches
 
 
 def lm_decode_step(

@@ -158,7 +158,7 @@ def _rows_merged(h: torch.Tensor) -> torch.Tensor:
 def _dispatch(xp: torch.Tensor, slot_tok: torch.Tensor, e: int) -> torch.Tensor:
     """Each slot's token row: xp (B, S + 1, D), the zero row last, at
     slot_tok (B, n_slots) -> (B, n_slots, D). Where a mesh splits the
-    experts, the rows are whole along D (`lm.whole_along_d`): each rank
+    experts, the rows are whole along D (`moe` makes them so): each rank
     gathers its own slots' rows, laid out as the slots' experts will be,
     and the gradient is each rank's scatter-add of its slots into the
     tokens, a partial sum that the backward pass reduces, as the
@@ -172,7 +172,7 @@ def _dispatch(xp: torch.Tensor, slot_tok: torch.Tensor, e: int) -> torch.Tensor:
     if isinstance(xp, DTensor) and rules is not None and rules.mesh is not None:
         experts = list(rules.sharding(("batch", "expert", None), (b, e, d)).placements)
         rows = [Shard(0) if p == Shard(0) else Replicate() for p in experts]
-        if Shard(1) in experts and all(q in (p, Replicate()) for p, q in zip(rows, xp.placements)):
+        if Shard(1) in experts:
             grad = [Partial() if p == Shard(1) else q for p, q in zip(experts, rows)]
             return local_map(lambda t, i: torch.gather(t, 1, i[..., None].expand(*i.shape, d)),
                              out_placements=experts, in_placements=(rows, experts),
@@ -285,6 +285,13 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch
     slot_gate = x.new_zeros((b, n_slots + 1), dtype=torch.float32).scatter(1, slot, gate_flat)
 
     # --- expert computation -----------------------------------------------------
+    # The rows whole along D before the zero row joins them (at a batch of
+    # 1 `lm.whole_along_d` leaves D split over the idle data axis): a row
+    # gathered, not two.
+    if isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim % 3 == 2
+                                      for p in x.placements):
+        x = x.redistribute(x.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim % 3 == 2
+                                           else p for p in x.placements])
     xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     xe = constrain(split_dim(_dispatch(xp, slot_tok, e), 1, (e, cap)),
                    "batch", "expert", None, None)

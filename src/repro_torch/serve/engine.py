@@ -137,9 +137,9 @@ class ServeEngine:
             caches = LM.make_stack_cache(cfg, b, s + budget, device=self.device)
             h, caches, _ = LM.lm_hidden(
                 self.params, cfg, torch.from_numpy(batch_ids).to(self.device),
-                caches=caches, update_cache=True, q_chunk=min(512, s),
+                caches=caches, update_cache=True, q_chunk=min(512, s), last=True,
             )
-            tok = self._greedy(LM.logits_from_hidden(self.params, cfg, h[:, -1:, :])[:, 0])
+            tok = self._greedy(LM.logits_from_hidden(self.params, cfg, h)[:, 0])
             t_decode = time.perf_counter()
             self.stats.prefill_s += t_decode - t_wave
             self.stats.prefill_tokens += b * s

@@ -33,8 +33,17 @@ import threading
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (
+    DTensor,
+    Partial,
+    Placement,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
+from torch.distributed.tensor.experimental import local_map
 
 
 # Candidate mesh-axis assignments per logical axis, in priority order.
@@ -273,14 +282,77 @@ def write_slice(buf: torch.Tensor, dim: int, start: int, value: torch.Tensor) ->
 
 
 def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
-    """Lay `x` out per the ambient rules: a `DTensor` is redistributed, a
-    plain tensor (the global value, the same on every rank) distributed
-    with no communication. Outside a mesh context (CPU smoke tests) it
-    returns `x` itself."""
+    """Lay `x` out per the ambient rules: a `DTensor` is redistributed
+    (`relaid`), a plain tensor (the global value, the same on every rank)
+    distributed with no communication. Outside a mesh context (CPU smoke
+    tests) it returns `x` itself."""
     rules = current_rules()
     if rules is None or rules.mesh is None:
         return x
     sharding = rules.sharding(tuple(logical_axes), tuple(x.shape))
     if isinstance(x, DTensor):
-        return x.redistribute(rules.mesh, sharding.placements)
+        return relaid(x, sharding.placements)
     return distribute_tensor(x, rules.mesh, sharding.placements, src_data_rank=None)
+
+
+def relaid(x: DTensor, placements) -> DTensor:
+    """``x.redistribute(mesh, placements)``. Where a tensor dim split on
+    one mesh dim `a` is to be split on another, `b`, instead (a one-token
+    residual's d between the model axis and the data axis that its batch
+    of 1 leaves idle), the split moves by one all-to-all over `a`, each
+    rank receiving the slice it will hold from the ranks of `a` that hold
+    it: 1/n of the bytes of `DTensor`'s own way, which gathers the dim
+    whole over `a` and keeps a slice (jamba-8l long_500k on 16 x 16:
+    (1, 1, 8192) bf16 gathers, 16 KB a layer each way, where the
+    reference's partitioner permutes 1 KB). A partial sum on `b` is
+    reduced first, every other mesh dim laid out as asked."""
+    mesh, target, cur = x.device_mesh, list(placements), list(x.placements)
+    moves = [(a, b, p.dim % x.ndim) for a, p in enumerate(cur) if isinstance(p, Shard)
+             and target[a] == Replicate() for b, q in enumerate(target)
+             if isinstance(q, Shard) and q.dim % x.ndim == p.dim % x.ndim
+             and not isinstance(cur[b], Shard)]
+    if len(moves) != 1:
+        return x.redistribute(mesh, target)
+    a, b, k = moves[0]
+    na, nb, n = mesh.size(a), mesh.size(b), x.shape[k]
+    if na == 1 or nb == 1 or n % na or n % nb or sum(
+            isinstance(p, Shard) and p.dim % x.ndim == k for p in cur + target) != 2:
+        return x.redistribute(mesh, target)
+    mid = [cur[m] if m == a else Replicate() if m == b else target[m] for m in range(len(cur))]
+    if mid != cur:
+        x = x.redistribute(mesh, mid)
+    la, lb = n // na, n // nb
+    coord = mesh.get_coordinate()
+    lo, hi = coord[b] * lb, (coord[b] + 1) * lb      # the slice this rank's group of `a` wants
+    sizes = [max(0, min(hi, (j + 1) * la) - max(lo, j * la)) for j in range(na)]
+    mine = sizes[coord[a]]
+    first = max(lo, coord[a] * la) - coord[a] * la if mine else 0
+    at = sum(sizes[:coord[a]])
+    # Every rank of `b` holds the gradient of its own slice: a partial sum.
+    grad = [Partial() if m == b else p for m, p in enumerate(mid)]
+    return local_map(lambda t: _SliceMoved.apply(t, k, first, mine, at, sizes, (mesh, a)),
+                     out_placements=target, in_placements=(mid,), in_grad_placements=(grad,),
+                     device_mesh=mesh)(x)
+
+
+class _SliceMoved(torch.autograd.Function):
+    """`relaid`'s all-to-all on a rank's shard `t`: its part of the wanted
+    slice (`mine` rows of dim `k` from row `first`) sent to every rank of
+    the group, which concatenates the parts it receives (`sizes`, in rank
+    order). The output is the same on every rank of the group, so the
+    gradient of this rank's part is its own output gradient's rows `at`
+    .. `at + mine`: a slice, moving nothing."""
+
+    @staticmethod
+    def forward(ctx, t, k, first, mine, at, sizes, group):
+        ctx.shape, ctx.k, ctx.first, ctx.mine, ctx.at = t.shape, k, first, mine, at
+        piece = t.narrow(k, first, mine).movedim(k, 0)
+        send = piece.repeat(len(sizes), *([1] * (piece.ndim - 1))).contiguous()
+        got = funcol.all_to_all_single(send, sizes, [mine] * len(sizes), group)
+        return funcol.wait_tensor(got).movedim(0, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        out.narrow(ctx.k, ctx.first, ctx.mine).copy_(g.narrow(ctx.k, ctx.at, ctx.mine))
+        return out, None, None, None, None, None, None

@@ -3,7 +3,14 @@ package's, the reference in a process of its own that forces 512 host
 devices before importing JAX. Prints one JSON line per cell: each side's
 per-chip product FLOPs (the reference's dots, `analyze_hlo`), collective
 bytes and bytes, its dominant term (both sides' counts over the same H100
-peaks, `roofline.analysis.HW_H100`), and the port's over the reference's.
+peaks, `roofline.analysis.HW_H100`), and the port's over the reference's;
+besides, each side's argument bytes (``args``: the rank's shards of the
+weights, caches and inputs, what a step must read at least once), the
+port's ``temp`` bytes, and the reference's ``coll_tuples``: the bytes of
+its tuple-shaped collectives (XLA's combined all-reduces of several
+partial sums, its MoE all-to-alls), which `analyze_hlo` counts as 0 and
+``coll`` leaves out (counted here by its own rules, the tuple's bytes as
+one array's).
 
   PYTHONPATH=src python tests/dryrun_reference_compare.py ARCH SHAPE [ARCH SHAPE ...]
       [--layers N] [--microbatches N] [--multi-pod | --mesh MESH] [--jobs J] [--top K]
@@ -20,8 +27,8 @@ cuts each config to N layers on both sides, rounded up to a whole number
 of its block pattern (jamba's 8), registered under the name ARCH-Nl.
 Cells run `--jobs` at a time, each in a process of its own (a dry-run holds
 one fake process group), the reference beside the port. `--top K` adds each
-side's K largest products and collectives, a collective as (bytes, kind,
-shape, dtype); the reference's bf16 all-reduces, which XLA's CPU backend
+side's K largest products, memory traffic and collectives, a collective
+as (bytes, kind, shape, dtype); the reference's bf16 all-reduces, which XLA's CPU backend
 promotes to f32 and which it counts at bf16 bytes, read "bf16 (promoted
 to f32)". Not a test: pytest collects
 nothing here.
@@ -38,12 +45,12 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REFERENCE = """
-import os, sys, json, dataclasses
+REFERENCE = r"""
+import os, sys, json, dataclasses, math, re
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
 from repro.configs import base
 from repro.launch.dryrun import lower_cell
-from repro.roofline.hlo_parse import COLLECTIVES, analyze_hlo, parse_module
+from repro.roofline.hlo_parse import _DTYPE_BYTES, COLLECTIVES, analyze_hlo, parse_module
 arch, shape = sys.argv[1], sys.argv[2]
 layers, micro, multi = int(sys.argv[3]), int(sys.argv[4]), sys.argv[5] == "1"
 top = int(sys.argv[6]) if len(sys.argv) > 6 else 0
@@ -54,10 +61,27 @@ if layers:
 rec, compiled = lower_cell(name, shape, multi_pod=multi, microbatches=micro, verbose=False)
 text = compiled.as_text()
 cost = analyze_hlo(text)
+
+
+def untupled(text):
+    # The module with each tuple-shaped collective's shape written as one
+    # u8 array of the tuple's bytes: `analyze_hlo` counts a tuple as 0.
+    pat = re.compile(r"^(\s*(?:ROOT\s+)?%[\w.\-]+\s*=\s*)\(([^()]*)\)(\s+(?:all-reduce|"
+                     r"all-gather|reduce-scatter|all-to-all|collective-permute)\()")
+    def nbytes(parts):
+        return sum(_DTYPE_BYTES[m.group(1)] * math.prod(int(d) for d in m.group(2).split(",") if d)
+                   for m in re.finditer(r"(\w+)\[([0-9,]*)\]", parts))
+    return "\n".join(pat.sub(lambda m: f"{m.group(1)}u8[{nbytes(m.group(2))}]{{0}}{m.group(3)}", l)
+                     for l in text.splitlines())
+
+
 out = {"flops": cost.flops, "coll": cost.collective_bytes,
-       "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"]}
+       "coll_tuples": analyze_hlo(untupled(text)).collective_bytes - cost.collective_bytes,
+       "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"],
+       "args": rec["memory_stats"].get("argument_bytes")}
 if top:
     out["top_flops"] = [[r[0], r[2], str(r[3])] for r in cost.top_flops[:top]]
+    out["top_traffic"] = [[r[0], r[2], str(r[3])] for r in cost.top_traffic[:top]]
     dtypes = {}
     for comp in parse_module(text)[0].values():
         for i in comp.instrs:
@@ -120,6 +144,7 @@ def _port_top(gm, k: int) -> dict:
     dtypes = {n.name: str(n.meta["val"].dtype).replace("torch.", "")
               for n in gm.graph.nodes if isinstance(n.meta.get("val"), torch.Tensor)}
     return {"top_flops": [[r[0], r[2], str(r[3])] for r in cost.top_flops[:k]],
+            "top_traffic": [[r[0], r[2], str(r[3])] for r in cost.top_traffic[:k]],
             "top_collectives": [[r[0], r[2], str(r[3]), dtypes.get(r[4], "?")]
                                 for r in cost.top_collectives[:k]]}
 
@@ -186,7 +211,8 @@ def compare_cell(arch: str, shape: str, layers: int, microbatches: int, multi_po
     rec, gm, ref = lower_both(arch, shape, layers, microbatches, multi_pod, top)
     port = {"flops": rec["flops_per_chip"], "coll": rec["coll_bytes_per_chip"],
             "bytes": rec["bytes_per_chip"], "model_flops": rec["model_flops_total"],
-            "dominant": rec["dominant"]}
+            "dominant": rec["dominant"], "args": rec["memory_stats"]["argument_bytes"],
+            "temp": rec["memory_stats"]["temp_bytes"]}
     if top:
         port.update(_port_top(gm, top))
     name = f"{arch}-{layers}l" if layers else arch

@@ -3,14 +3,26 @@ the CPU, on torch's ``fake`` process group of 256 ranks (pod16x16): each
 config cut to 2 layers on both sides, as tests/dryrun_reference_compare.py
 cuts it, the reference in a subprocess beside the port's trace.
 
-- smollm-135m-2l and granite-moe-3b-a800m-2l prefill_32k: the dominant
-  term (both sides' counts over the same H100 peaks) equal to the
-  reference's, per-chip product FLOPs equal to its dots to the last
-  digit, and collective bytes a chip at most `COLL_LIMIT` times the
-  reference's. Before the normed residual was gathered whole along d in
-  prefill (`models.lm.whole_along_d`), the expert weights at their use
-  (`models.moe._gathered_over_rows`) and dispatch took its local slots,
-  they read 2.138x and 4.556x.
+- smollm-135m-2l, granite-moe-3b-a800m-2l and whisper-large-v3-2l
+  prefill_32k: the dominant term (both sides' counts over the same H100
+  peaks) equal to the reference's, per-chip product FLOPs equal to its
+  dots to the last digit, and collective bytes a chip at most
+  `COLL_LIMIT` times the reference's. Before the normed residual was
+  gathered whole along d in prefill (`models.lm.whole_along_d`), the
+  expert weights at their use (`models.moe._gathered_over_rows`) and
+  dispatch took its local slots, the first two read 2.138x and 4.556x;
+  before the attention context was reduce-scattered onto its merged
+  heads (`models.layers._context_for_wo`), k and v moved to their
+  sequence split by an all-to-all (`layers._columns_to_sequence`) and
+  prefill gathered only its last position's hidden state (`lm_hidden`'s
+  `last`), granite and whisper read 1.862x and 1.510x. granite's limit
+  stays above 1.25x: the reference all-reduces its q/k/v partial sums as
+  one tuple, which its `analyze_hlo` counts as 0 bytes (PERF.md §6).
+- granite-moe-3b-a800m-2l and whisper-large-v3-2l: no collective moves
+  an attention context (B, S, H, D) or (B, S, H_kv, g, D) with its heads
+  whole (24 and 20: they do not split 16 ways). Before, whisper
+  all-reduced (2, 32768, 20, 64) a layer, and granite reduce-scattered
+  its context onto the sequence and gathered (32, 2048, 24, 64) back.
 - smollm-135m-2l: no collective moves the MLP's hidden state, whose last
   dim is d_ff (1536) or its 16th over the model ranks (96). Before, each
   layer reduce-scattered (2, 2048, 1536) partial sums and gathered (32,
@@ -30,7 +42,7 @@ from repro_torch.configs import SHAPES, get_config
 from repro_torch.models.moe import capacity
 from dryrun_reference_compare import collectives, lower_both
 
-COLL_LIMIT = {"smollm-135m": 1.6, "granite-moe-3b-a800m": 2.0}
+COLL_LIMIT = {"smollm-135m": 1.6, "granite-moe-3b-a800m": 1.4, "whisper-large-v3": 1.25}
 _traced: dict = {}
 
 
@@ -71,3 +83,13 @@ def test_prefill_moves_no_moe_slots():
     moved = collectives(gm)
     assert moved, "no collective traced"
     assert [m for m in moved if len(m[1]) == 4 and m[1][1:] == slots] == []
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "whisper-large-v3"])
+def test_prefill_moves_no_whole_head_context(arch):
+    _, gm, _ = _cell(arch)
+    cfg = get_config(arch)
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    moved = collectives(gm)
+    assert moved, "no collective traced"
+    assert [m for m in moved if m[1][-2:] == (hq, dh) or m[1][-3:] == (hkv, hq // hkv, dh)] == []

@@ -10,6 +10,11 @@ layers on both sides, as tests/dryrun_reference_compare.py cuts it.
   repairs both read 6.76x and 8.01x the reference's collective bytes, and
   smollm's dominant term was "collective" where the reference's is
   "memory".
+- command-r-plus-104b-2l train_4k: the same. Cohere's parallel block
+  ends both branches in a product; before both products' operands were
+  saved before either ran (`models.lm.products_saved_first`), the
+  recomputed period ran the attention output projection again, which the
+  reference's remat drops: 1.01386x its FLOPs.
 - smollm-135m-2l train_4k: no collective in the traced graph moves a
   logits-shaped or a score-shaped tensor. Before, the loss's
   ``logsumexp`` gathered each 512-token chunk's fp32 logits over the
@@ -32,7 +37,7 @@ from dryrun_reference_compare import collectives, lower_both
 
 COLL_LIMIT = 2.0          # the port's collective bytes a chip over the reference's
 LOSS_CHUNK = 512
-CELLS = ["smollm-135m", "granite-moe-3b-a800m"]
+CELLS = ["smollm-135m", "granite-moe-3b-a800m", "command-r-plus-104b"]
 _traced: dict = {}
 
 

@@ -33,6 +33,15 @@ mesh, the production meshes' two layouts. On each:
   for GQA groups of 4 and 2 and chunks of 1 and 2 query rows; and
   `layers._attn_core` at batch 1 against a cache on ``kv_seq``, a valid
   length short of the cache, must equal the unsharded call within 1e-5.
+- `sharding.rules.relaid`, a split moved from the model axis to the data
+  axis and back by one all-to-all (a one-token residual's d): the values
+  bit for bit, the gradient too, and the layout asked for.
+- reduced mamba2-1.3b, jamba-1.5-large-398b and granite-moe-3b-a800m at a
+  batch of 1 (the data axis idle: the residual's d moved onto it, the
+  context reduce-scattered onto its merged heads, MoE rows gathered before
+  dispatch) in fp32, laid out by DECODE_RULES: the loss, every gradient,
+  a prefill and two decode steps within 1e-4 of the unsharded calls
+  (relative: the limit of tests/test_torch_sharded_forward.py's world).
 
   PYTHONPATH=src python tests/test_torch_sharded_lookup.py OUT.json
 """
@@ -52,10 +61,11 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
+from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_mesh_compat
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
-from repro_torch.sharding.rules import DECODE_RULES, ShardingRules, use_rules
+from repro_torch.sharding.rules import DECODE_RULES, ShardingRules, relaid, use_rules
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = 8
@@ -64,6 +74,7 @@ MESHES = {"pod16x16-like": ((4, 2), ("data", "model")),
 VOCAB, ROWS, D = 1000, 1024, 16
 JOIN_TIMEOUT_S = 300
 ATTN_CASES = {"g4": (2, 4), "g2": (4, 2)}     # (kv heads, group)
+BATCH_1_ARCHS = ["granite-moe-3b-a800m", "jamba-1.5-large-398b", "mamba2-1.3b"]
 
 
 # --------------------------------------------------------------------------- #
@@ -214,13 +225,59 @@ def _bias_checks(mesh) -> dict:
             "bias_placements": str(got.placements)}
 
 
+def _relaid_checks(mesh) -> dict:
+    """`relaid` of (1, 2, 48) split on its last dim from the model axis to
+    the data axis and back, against the whole tensor and its gradient."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((1, 2, 48), dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal((1, 2, 48), dtype=np.float32))
+    names = list(mesh.mesh_dim_names)
+    out = {}
+    for name, src, dst in (("model_to_data", "model", "data"), ("data_to_model", "data", "model")):
+        on = [Shard(2) if n == src else Replicate() for n in names]
+        to = [Shard(2) if n == dst else Replicate() for n in names]
+        xd = distribute_tensor(x, mesh, on, src_data_rank=None).requires_grad_()
+        got = relaid(xd, to)
+        (got.full_tensor() * g).sum().backward()
+        out[f"relaid_{name}"] = float((got.full_tensor().detach() - x).abs().max())
+        out[f"relaid_{name}_grad"] = float((xd.grad.full_tensor() - g).abs().max())
+        out[f"relaid_{name}_placements"] = got.placements == tuple(to)
+    return out
+
+
+def _batch_1_model_checks(mesh) -> dict:
+    """Reduced configs at a batch of 1 on DECODE_RULES against no mesh:
+    the largest relative difference of the loss, the gradients, the
+    prefill and the decode steps."""
+    from test_torch_sharded_worker import diff, forward, inputs, make_model, reshard_params
+
+    L.COMPUTE_DTYPE = torch.float32
+    out = {}
+    try:
+        for arch in BATCH_1_ARCHS:
+            cfg = get_config(arch).reduced()
+            model = make_model(cfg)
+            params = model.init(0, device="cpu")
+            data = {k: v[:1] for k, v in inputs(cfg).items()}
+            want = forward(model, params, data, None)
+            rules = ShardingRules(mesh, dict(DECODE_RULES))
+            got = forward(model, reshard_params(params, model.spec(), rules), data, rules)
+            out[f"batch_1_{arch}"] = max(
+                [diff(got[k], want[k])[1] for k in ("loss", "prefill", "decode")]
+                + [diff(a, b)[1] for a, b in zip(got["grads"], want["grads"])])
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    return out
+
+
 def run() -> dict:
     results = {}
     for mesh_name, (shape, names) in MESHES.items():
         mesh = make_mesh_compat(shape, names, device_type="cpu")
         rules = ShardingRules(mesh, dict(DECODE_RULES))
         results[mesh_name] = {**_lookup_checks(mesh, rules), **_attn_checks(mesh, rules),
-                              **_state_checks(mesh), **_bias_checks(mesh)}
+                              **_state_checks(mesh), **_bias_checks(mesh),
+                              **_relaid_checks(mesh), **_batch_1_model_checks(mesh)}
     return results
 
 
@@ -329,6 +386,21 @@ def test_pv_split_over_idle_axes(world, mesh, case, rows):
 @pytest.mark.parametrize("case", sorted(ATTN_CASES))
 def test_batch_1_attention_equals_unsharded(world, mesh, case):
     assert world[mesh][f"attn_{case}"] <= 1e-5
+
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("way", ["model_to_data", "data_to_model"])
+def test_relaid_moves_a_split_between_axes(world, mesh, way):
+    got = world[mesh]
+    assert got[f"relaid_{way}"] == 0.0 and got[f"relaid_{way}_grad"] == 0.0
+    assert got[f"relaid_{way}_placements"]
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", BATCH_1_ARCHS)
+def test_batch_1_model_equals_unsharded(world, mesh, arch):
+    assert world[mesh][f"batch_1_{arch}"] <= 1e-4
 
 
 if __name__ == "__main__":
