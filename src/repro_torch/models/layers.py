@@ -38,7 +38,6 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.experimental import local_map
@@ -53,6 +52,7 @@ from repro_torch.sharding.rules import (
     grad_in_layout,
     local_extent,
     merge_dims,
+    relaid,
     replicate_like,
     split_dim,
     under_current_rules,
@@ -175,38 +175,14 @@ def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
             or moved_by_ids < table.numel() * table.element_size() / ways):
         return _sharded_lookup(table, ids)
     # The mesh dims that go whole first (an all-gather of a slice), then
-    # the rows' split swapped for the columns'.
-    relaid = table.redistribute(mesh, [c if c == Replicate() else t
-                                       for t, c in zip(table.placements, cols)])
-    for m, c in enumerate(cols):
-        if c != Replicate():
-            relaid = _rows_to_columns(relaid, m)
+    # the rows' split swapped for the columns' by one all-to-all.
     grad = [Partial() if isinstance(p, Shard) else c for p, c in zip(ids.placements, cols)]
     out = [Shard(p.dim % ids.ndim) if isinstance(p, Shard) else Shard(ids.ndim) if c != Replicate()
            else Replicate() for p, c in zip(ids.placements, cols)]
     return local_map(lambda t, i: t[i], out_placements=out,
                      in_placements=(cols, ids.placements),
                      in_grad_placements=(grad, ids.placements),
-                     device_mesh=mesh)(relaid, ids)
-
-
-def _rows_to_columns(table: DTensor, m: int) -> DTensor:
-    """`table` split along its rows on mesh dim `m` as the same split along
-    its columns, in one all-to-all over that dim: each rank sends every
-    other one the columns it will hold of its rows. `DTensor` does this
-    itself on a CUDA mesh; on a CPU mesh (gloo, and the dry-run's fake
-    groups) it gathers the whole table and keeps a slice."""
-    mesh, n = table.device_mesh, table.device_mesh.size(m)
-
-    def swap(t: torch.Tensor) -> torch.Tensor:
-        rows, d = t.shape
-        blocks = t.reshape(rows, n, d // n).transpose(0, 1).reshape(n * rows, d // n)
-        return funcol.wait_tensor(funcol.all_to_all_single_autograd(blocks, None, None,
-                                                                    (mesh, m)))
-
-    out = [Shard(1) if k == m else p for k, p in enumerate(table.placements)]
-    return local_map(swap, out_placements=out, in_placements=(table.placements,),
-                     device_mesh=mesh)(table)
+                     device_mesh=mesh)(relaid(table, cols), ids)
 
 
 def _sharded_lookup(table: DTensor, ids: DTensor) -> DTensor:
@@ -501,7 +477,7 @@ def _attn_core(
     q_offset: int,          # global position of q[:, 0]
     kv_valid_len: int | None = None,   # mask kv positions >= this
     q_chunk: int = 512,
-    allow_head_shard: bool = True,
+    head_mode: bool | None = None,
 ) -> torch.Tensor:
     """Plain attention in query chunks, masking by absolute position and by
     the valid cache length. Under autograd each chunk is recomputed in the
@@ -509,10 +485,11 @@ def _attn_core(
     probabilities are kept.
 
     The reference's two sharding modes:
-      * head-sharded (`allow_head_shard` and the q heads divide the tensor
-        axis): k/v expanded to the q heads (head h reads kv head h // g),
-        laid out on ``heads`` with the query chunks and the scores; the
-        context in v's dtype (the reference's preferred_element_type);
+      * head-sharded (`head_mode`; by default wherever the q heads divide
+        the tensor axis): k/v expanded to the q heads (head h reads kv
+        head h // g), laid out on ``heads`` with the query chunks and the
+        scores; the context in v's dtype (the reference's
+        preferred_element_type);
       * kv_seq-sharded otherwise: k/v on ``kv_seq``, the scores along it,
         GQA groups kept (q as (B, H_kv, S_q, g, D_h)), every rank reading
         all the query heads against its k/v positions."""
@@ -520,7 +497,8 @@ def _attn_core(
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = dh ** -0.5
-    head_mode = allow_head_shard and _head_shardable(hq)
+    if head_mode is None:
+        head_mode = _head_shardable(hq)
 
     if head_mode:
         # Head h reads kv head h // g: each kv head repeated g times in
@@ -660,49 +638,18 @@ def _plus_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _project(x: torch.Tensor, w: torch.Tensor, *, kv_seq: bool = False) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads, the
     weight gathered over the batch's mesh axes. With `kv_seq` (k and v for
-    the kv_seq mode) the output is laid out along the sequence where that
-    mode will put it (`_columns_to_sequence`)."""
+    the kv_seq mode) the output (B, S, H * D), split along its columns on
+    the mesh dim that ``kv_seq`` resolves to, is split along S there
+    instead, by one all-to-all (`relaid`). Not a `constrain` (the
+    reference has none here)."""
     h, k = w.shape[1], w.shape[2]
     w = _gathered_over_batch(merge_dims(w.to(x.dtype), 1, 2), x)
     y = x @ w
-    if kv_seq:
-        y = _columns_to_sequence(y)
-    return split_dim(y, -1, (h, k))
-
-
-def _columns_to_sequence(y: torch.Tensor) -> torch.Tensor:
-    """A projection's output (B, S, H * D), split along its columns on the
-    mesh dim that ``kv_seq`` resolves to, split along S there instead: one
-    all-to-all, each rank sending every other one the rows it will hold of
-    its columns. Not a `constrain` (the reference has none here): where
-    the heads do not split over that dim `DTensor` gathers the columns
-    whole on every rank and keeps a slice of the sequence after
-    (granite-2l prefill_32k on 16 x 16: k and v each a (32, 32768, 32)
-    all-gather, 16 times the all-to-all's bytes), and on a CPU group it
-    moves a split between dims so wherever it does."""
     rules = current_rules()
-    if not isinstance(y, DTensor) or rules is None or rules.mesh is None:
-        return y
-    mesh = y.device_mesh
-    target = rules.sharding(("batch", "kv_seq", None), tuple(y.shape)).placements
-    moved = [m for m, (p, t) in enumerate(zip(y.placements, target))
-             if isinstance(p, Shard) and p.dim % y.ndim == 2 and t == Shard(1)
-             and mesh.size(m) > 1]
-    if len(moved) != 1 or any(isinstance(p, Shard) and p.dim % y.ndim == 1
-                              for p in y.placements):
-        return y
-    m = moved[0]
-    n = mesh.size(m)
-
-    def swap(t: torch.Tensor) -> torch.Tensor:
-        b, s, c = t.shape
-        blocks = t.reshape(b, n, s // n, c).transpose(0, 1).reshape(n * b, s // n, c)
-        got = funcol.wait_tensor(funcol.all_to_all_single_autograd(blocks, None, None, (mesh, m)))
-        return got.reshape(n, b, s // n, c).permute(1, 2, 0, 3).reshape(b, s // n, n * c)
-
-    out = [Shard(1) if k == m else p for k, p in enumerate(y.placements)]
-    return local_map(swap, out_placements=out, in_placements=(y.placements,),
-                     device_mesh=mesh)(y)
+    if kv_seq and isinstance(y, DTensor) and rules is not None and rules.mesh is not None:
+        seq = rules.sharding(("batch", "kv_seq", None), tuple(y.shape)).placements
+        y = relaid(y, [q if q == Shard(1) else p for p, q in zip(y.placements, seq)])
+    return split_dim(y, -1, (h, k))
 
 
 def attention(
@@ -752,6 +699,10 @@ def attention_context(
     prefill = (kv_source is None and start == 0
                and (cache is None or (update_cache and cache.length == 0)))
 
+    # The reference's two attention modes (`_attn_core`): heads split over
+    # the tensor axis where they divide it, except against a cache (the
+    # serving layout keeps k/v on ``kv_seq``).
+    head_mode = cache is None and _head_shardable(cfg.num_heads)
     q = _project(x, p["wq"])
     if "bq" in p:
         q = _plus_bias(q, p["bq"].to(x.dtype))
@@ -763,8 +714,7 @@ def attention_context(
         k, v, kv_len = cache.k, cache.v, cache.length
         new_cache = cache
     else:
-        k, v = _kv(p, cfg, kv_source if kv_source is not None else x,
-                   kv_seq=not (cache is None and _head_shardable(cfg.num_heads)))
+        k, v = _kv(p, cfg, kv_source if kv_source is not None else x, kv_seq=not head_mode)
         if rope:
             k = apply_rope(k, positions, cfg.rope_theta)
         if cache is not None:
@@ -791,7 +741,7 @@ def attention_context(
     # mesh it takes only layouts with whole (batch, head) slices on every
     # rank: the kv_seq mode's k/v over one rank at most.
     if (prefill and not ops.needs_grad(q, k, v) and _kv_seq_whole(k.shape[1])
-            and not (cache is None and _head_shardable(q.shape[2]))):
+            and not head_mode):
         k = constrain(k, "batch", "kv_seq", None, None)
         v = constrain(v, "batch", "kv_seq", None, None)
         # (B, S, H, D) -> (B, H, S, D) strided views; the kernel writes its
@@ -804,7 +754,7 @@ def attention_context(
         # encoder/cross attention computed from source activations.
         out = _attn_core(q, k, v, causal=causal and kv_source is None,
                          q_offset=start, kv_valid_len=kv_len, q_chunk=q_chunk,
-                         allow_head_shard=cache is None)
+                         head_mode=head_mode)
     wo = merge_dims(p["wo"].to(x.dtype), 0, 1)
     return _contraction_split(_context_for_wo(out), wo), wo, new_cache
 

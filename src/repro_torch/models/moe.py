@@ -155,10 +155,12 @@ def _rows_merged(h: torch.Tensor) -> torch.Tensor:
                      in_placements=(h.placements,), device_mesh=mesh)(h)
 
 
-def _dispatch(xp: torch.Tensor, slot_tok: torch.Tensor, e: int) -> torch.Tensor:
-    """Each slot's token row: xp (B, S + 1, D), the zero row last, at
-    slot_tok (B, n_slots) -> (B, n_slots, D). Where a mesh splits the
-    experts, the rows are whole along D (`moe` makes them so): each rank
+def _dispatch(x: torch.Tensor, slot_tok: torch.Tensor, e: int) -> torch.Tensor:
+    """Each slot's token row: x (B, S, D) with a zero row appended (index
+    S, an empty slot's), at slot_tok (B, n_slots) -> (B, n_slots, D).
+    Where a mesh splits the experts, the rows are laid out whole along D
+    first (at a batch of 1 `lm.whole_along_d` splits D over the idle data
+    axis), before the zero row joins them, so no zero row moves: each rank
     gathers its own slots' rows, laid out as the slots' experts will be,
     and the gradient is each rank's scatter-add of its slots into the
     tokens, a partial sum that the backward pass reduces, as the
@@ -166,20 +168,22 @@ def _dispatch(xp: torch.Tensor, slot_tok: torch.Tensor, e: int) -> torch.Tensor:
     every slot on each rank and, in the backward pass, gather every slot's
     gradient: (B, E · capacity, D) a layer, 16 times a rank's share
     (granite: 2.4 GB a rank)."""
-    b, _, d = xp.shape
+    b, _, d = x.shape
     n_slots = slot_tok.shape[1]
     rules = current_rules()
-    if isinstance(xp, DTensor) and rules is not None and rules.mesh is not None:
+    if isinstance(x, DTensor) and rules is not None and rules.mesh is not None:
+        mesh = x.device_mesh
         experts = list(rules.sharding(("batch", "expert", None), (b, e, d)).placements)
         rows = [Shard(0) if p == Shard(0) else Replicate() for p in experts]
         if Shard(1) in experts:
+            x = x.redistribute(mesh, rows)
+            xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
             grad = [Partial() if p == Shard(1) else q for p, q in zip(experts, rows)]
             return local_map(lambda t, i: torch.gather(t, 1, i[..., None].expand(*i.shape, d)),
                              out_placements=experts, in_placements=(rows, experts),
                              in_grad_placements=(grad, experts),
-                             device_mesh=xp.device_mesh)(xp.redistribute(xp.device_mesh, rows),
-                                                         slot_tok.redistribute(xp.device_mesh,
-                                                                               experts))
+                             device_mesh=mesh)(xp, slot_tok.redistribute(mesh, experts))
+    xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     return torch.gather(xp, 1, slot_tok[..., None].expand(b, n_slots, d))
 
 
@@ -256,7 +260,7 @@ def route(p: dict, cfg: ModelConfig,
 def moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, S, D) in x's dtype, the Switch load-balancing aux
     loss, a 0-d fp32 tensor). Routing is per batch row."""
-    b, s, d = x.shape
+    b, s, _ = x.shape
     e, k = cfg.moe_padded_experts, cfg.moe_top_k
     cap = capacity(cfg, s)
     n_slots = e * cap
@@ -285,15 +289,7 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch
     slot_gate = x.new_zeros((b, n_slots + 1), dtype=torch.float32).scatter(1, slot, gate_flat)
 
     # --- expert computation -----------------------------------------------------
-    # The rows whole along D before the zero row joins them (at a batch of
-    # 1 `lm.whole_along_d` leaves D split over the idle data axis): a row
-    # gathered, not two.
-    if isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim % 3 == 2
-                                      for p in x.placements):
-        x = x.redistribute(x.device_mesh, [Replicate() if isinstance(p, Shard) and p.dim % 3 == 2
-                                           else p for p in x.placements])
-    xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    xe = constrain(split_dim(_dispatch(xp, slot_tok, e), 1, (e, cap)),
+    xe = constrain(split_dim(_dispatch(x, slot_tok, e), 1, (e, cap)),
                    "batch", "expert", None, None)
     ye = merge_dims(_experts(p, cfg, xe), 1, 2)
 

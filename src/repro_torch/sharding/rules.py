@@ -296,27 +296,49 @@ def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
 
 
 def relaid(x: DTensor, placements) -> DTensor:
-    """``x.redistribute(mesh, placements)``. Where a tensor dim split on
-    one mesh dim `a` is to be split on another, `b`, instead (a one-token
-    residual's d between the model axis and the data axis that its batch
-    of 1 leaves idle), the split moves by one all-to-all over `a`, each
-    rank receiving the slice it will hold from the ranks of `a` that hold
-    it: 1/n of the bytes of `DTensor`'s own way, which gathers the dim
-    whole over `a` and keeps a slice (jamba-8l long_500k on 16 x 16:
-    (1, 1, 8192) bf16 gathers, 16 KB a layer each way, where the
-    reference's partitioner permutes 1 KB). A partial sum on `b` is
-    reduced first, every other mesh dim laid out as asked."""
-    mesh, target, cur = x.device_mesh, list(placements), list(x.placements)
-    moves = [(a, b, p.dim % x.ndim) for a, p in enumerate(cur) if isinstance(p, Shard)
+    """``x.redistribute(mesh, placements)``, a split moved by one
+    all-to-all where it moves in one of two ways; every other mesh dim is
+    laid out as asked first (a gather, a partial sum reduced).
+      * Between two tensor dims on one mesh dim (a table's rows to its
+        columns, a projection's columns to its sequence): each rank sends
+        every other one the part of its shard that the other will hold.
+        `DTensor` does this itself on a CUDA mesh; on a CPU mesh (gloo,
+        and the dry-run's fake groups) it gathers the dim whole and keeps
+        a slice (granite-2l prefill_32k on 16 x 16: k and v each a (32,
+        32768, 32) all-gather, 16 times the all-to-all's bytes).
+      * Between two mesh dims on one tensor dim, `a` to `b` (a one-token
+        residual's d from the model axis to the data axis that its batch
+        of 1 leaves idle): each rank receives the slice it will hold from
+        the ranks of `a` that hold it, 1/n of the bytes of `DTensor`'s own
+        way, which gathers the dim whole over `a` and keeps a slice
+        (jamba-8l long_500k on 16 x 16: (1, 1, 8192) bf16 gathers, 16 KB
+        a layer each way, where the reference's partitioner permutes 1 KB).
+        A partial sum on `b` is reduced first."""
+    mesh, target, cur, nd = x.device_mesh, list(placements), list(x.placements), x.ndim
+
+    swaps = [(m, p.dim % nd, q.dim % nd) for m, (p, q) in enumerate(zip(cur, target))
+             if isinstance(p, Shard) and isinstance(q, Shard) and p.dim % nd != q.dim % nd]
+    moves = [(a, b, p.dim % nd) for a, p in enumerate(cur) if isinstance(p, Shard)
              and target[a] == Replicate() for b, q in enumerate(target)
-             if isinstance(q, Shard) and q.dim % x.ndim == p.dim % x.ndim
+             if isinstance(q, Shard) and q.dim % nd == p.dim % nd
              and not isinstance(cur[b], Shard)]
-    if len(moves) != 1:
+    if len(swaps) + len(moves) != 1:
         return x.redistribute(mesh, target)
+    if swaps:
+        m, i, j = swaps[0]
+        n = mesh.size(m)
+        others = {p.dim % nd for k, p in enumerate(target) if k != m and isinstance(p, Shard)}
+        if n == 1 or x.shape[i] % n or x.shape[j] % n or {i, j} & others:
+            return x.redistribute(mesh, target)
+        mid = [cur[m] if k == m else t for k, t in enumerate(target)]
+        if mid != cur:
+            x = x.redistribute(mesh, mid)
+        return local_map(lambda t: _dims_swapped(t, i, j, n, (mesh, m)), out_placements=target,
+                         in_placements=(mid,), device_mesh=mesh)(x)
     a, b, k = moves[0]
     na, nb, n = mesh.size(a), mesh.size(b), x.shape[k]
     if na == 1 or nb == 1 or n % na or n % nb or sum(
-            isinstance(p, Shard) and p.dim % x.ndim == k for p in cur + target) != 2:
+            isinstance(p, Shard) and p.dim % nd == k for p in cur + target) != 2:
         return x.redistribute(mesh, target)
     mid = [cur[m] if m == a else Replicate() if m == b else target[m] for m in range(len(cur))]
     if mid != cur:
@@ -333,6 +355,19 @@ def relaid(x: DTensor, placements) -> DTensor:
     return local_map(lambda t: _SliceMoved.apply(t, k, first, mine, at, sizes, (mesh, a)),
                      out_placements=target, in_placements=(mid,), in_grad_placements=(grad,),
                      device_mesh=mesh)(x)
+
+
+def _dims_swapped(t: torch.Tensor, i: int, j: int, n: int, group) -> torch.Tensor:
+    """`relaid`'s all-to-all on a rank's shard `t`, split along dim `i`
+    over the `n` ranks of `group`, as the same split along dim `j`: the
+    n-th parts of `t` along `j` go to the ranks in order, and the parts
+    received are stacked along `i` in rank order. Its gradient is the
+    reverse all-to-all."""
+    # Where a dim of one row lets the reshape be a view, it is a strided
+    # one, which torch 2.11's all-to-all refuses.
+    send = t.unflatten(j, (n, -1)).movedim(j, 0).flatten(0, 1).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single_autograd(send, None, None, group))
+    return got.unflatten(0, (n, -1)).movedim(0, i).flatten(i, i + 1)
 
 
 class _SliceMoved(torch.autograd.Function):

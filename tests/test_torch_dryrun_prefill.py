@@ -13,16 +13,20 @@ cuts it, the reference in a subprocess beside the port's trace.
   dispatch took its local slots, the first two read 2.138x and 4.556x;
   before the attention context was reduce-scattered onto its merged
   heads (`models.layers._context_for_wo`), k and v moved to their
-  sequence split by an all-to-all (`layers._columns_to_sequence`) and
+  sequence split by an all-to-all (`sharding.rules.relaid`) and
   prefill gathered only its last position's hidden state (`lm_hidden`'s
   `last`), granite and whisper read 1.862x and 1.510x. granite's limit
   stays above 1.25x: the reference all-reduces its q/k/v partial sums as
   one tuple, which its `analyze_hlo` counts as 0 bytes (PERF.md §6).
 - granite-moe-3b-a800m-2l and whisper-large-v3-2l: no collective moves
   an attention context (B, S, H, D) or (B, S, H_kv, g, D) with its heads
-  whole (24 and 20: they do not split 16 ways). Before, whisper
-  all-reduced (2, 32768, 20, 64) a layer, and granite reduce-scattered
-  its context onto the sequence and gathered (32, 2048, 24, 64) back.
+  whole (24 and 20: they do not split 16 ways), nor the merged context
+  (B, S, H * D) with its columns whole (a functional reduce-scatter or
+  all-gather along another dim than the first moves its shards stacked
+  on dim 0, so the last dim of the tensor it moves is H * D only where
+  the columns are not split). Before, whisper all-reduced (2, 32768, 20,
+  64) a layer, and granite reduce-scattered its context onto the
+  sequence and gathered (32, 2048, 24, 64) back.
 - smollm-135m-2l: no collective moves the MLP's hidden state, whose last
   dim is d_ff (1536) or its 16th over the model ranks (96). Before, each
   layer reduce-scattered (2, 2048, 1536) partial sums and gathered (32,
@@ -93,3 +97,4 @@ def test_prefill_moves_no_whole_head_context(arch):
     moved = collectives(gm)
     assert moved, "no collective traced"
     assert [m for m in moved if m[1][-2:] == (hq, dh) or m[1][-3:] == (hkv, hq // hkv, dh)] == []
+    assert [m for m in moved if len(m[1]) >= 3 and m[1][-1] == hq * dh] == []

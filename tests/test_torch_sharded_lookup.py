@@ -34,7 +34,9 @@ mesh, the production meshes' two layouts. On each:
   `layers._attn_core` at batch 1 against a cache on ``kv_seq``, a valid
   length short of the cache, must equal the unsharded call within 1e-5.
 - `sharding.rules.relaid`, a split moved from the model axis to the data
-  axis and back by one all-to-all (a one-token residual's d): the values
+  axis and back by one all-to-all (a one-token residual's d), and from a
+  projection's columns to its sequence and back on the model axis (k and
+  v for the kv_seq mode), the batch split on the data axis: the values
   bit for bit, the gradient too, and the layout asked for.
 - reduced mamba2-1.3b, jamba-1.5-large-398b and granite-moe-3b-a800m at a
   batch of 1 (the data axis idle: the residual's d moved onto it, the
@@ -65,6 +67,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_mesh_compat
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
+from repro_torch.sharding import rules as R
 from repro_torch.sharding.rules import DECODE_RULES, ShardingRules, relaid, use_rules
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,6 +77,9 @@ MESHES = {"pod16x16-like": ((4, 2), ("data", "model")),
 VOCAB, ROWS, D = 1000, 1024, 16
 JOIN_TIMEOUT_S = 300
 ATTN_CASES = {"g4": (2, 4), "g2": (4, 2)}     # (kv heads, group)
+RELAID_AXES = ["model_to_data", "data_to_model"]
+RELAID_DIMS = ["columns_to_sequence", "sequence_to_columns"]
+RELAID_WAYS = RELAID_AXES + RELAID_DIMS
 BATCH_1_ARCHS = ["granite-moe-3b-a800m", "jamba-1.5-large-398b", "mamba2-1.3b"]
 
 
@@ -130,14 +136,14 @@ def _lookup_checks(mesh, rules: ShardingRules) -> dict:
         i = distribute_tensor(ids, mesh, rules.sharding(("batch", None), tuple(ids.shape))
                               .placements, src_data_rank=None)
         calls, swaps = [], []
-        sharded, swap = L._sharded_lookup, L._rows_to_columns
+        sharded, swap = L._sharded_lookup, R._dims_swapped
         L._sharded_lookup = lambda *a: calls.append(1) or sharded(*a)
-        L._rows_to_columns = lambda *a: swaps.append(1) or swap(*a)
+        R._dims_swapped = lambda *a: swaps.append(1) or swap(*a)
         try:
             with use_rules(rules):
                 got = L.constrain(L._lookup(t, i), "batch", None, "residual")
         finally:
-            L._sharded_lookup, L._rows_to_columns = sharded, swap
+            L._sharded_lookup, R._dims_swapped = sharded, swap
         whole = got.full_tensor()
         (whole * grad_out).sum().backward()
         want_grad = torch.zeros_like(tab).index_add_(0, ids.reshape(-1), grad_out.reshape(-1, d))
@@ -178,7 +184,7 @@ def _attn_checks(mesh, rules: ShardingRules) -> dict:
         k = torch.from_numpy(rng.standard_normal((1, sk, hkv, dh), dtype=np.float32))
         v = torch.from_numpy(rng.standard_normal((1, sk, hkv, dh), dtype=np.float32))
         kw = dict(causal=True, q_offset=valid - 1, kv_valid_len=valid, q_chunk=1,
-                  allow_head_shard=False)
+                  head_mode=False)
         want = L._attn_core(q, k, v, **kw)
         with use_rules(rules):
             cache = rules.sharding(("batch", "kv_seq", None, None), tuple(k.shape))
@@ -226,22 +232,35 @@ def _bias_checks(mesh) -> dict:
 
 
 def _relaid_checks(mesh) -> dict:
-    """`relaid` of (1, 2, 48) split on its last dim from the model axis to
-    the data axis and back, against the whole tensor and its gradient."""
+    """`relaid` of (4, 8, 48) split on its last dim from the model axis to
+    the data axis and back, and on the model axis from its last dim to its
+    second and back (its batch on the data axis), against the whole tensor
+    and its gradient."""
     rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.standard_normal((1, 2, 48), dtype=np.float32))
-    g = torch.from_numpy(rng.standard_normal((1, 2, 48), dtype=np.float32))
+    x = torch.from_numpy(rng.standard_normal((4, 8, 48), dtype=np.float32))
+    g = torch.from_numpy(rng.standard_normal((4, 8, 48), dtype=np.float32))
     names = list(mesh.mesh_dim_names)
+    axes = {"model": [Shard(2) if n == "model" else Replicate() for n in names],
+            "data": [Shard(2) if n == "data" else Replicate() for n in names],
+            "columns": [Shard(2) if n == "model" else Shard(0) if n == "data" else Replicate()
+                        for n in names],
+            "sequence": [Shard(1) if n == "model" else Shard(0) if n == "data" else Replicate()
+                         for n in names]}
     out = {}
-    for name, src, dst in (("model_to_data", "model", "data"), ("data_to_model", "data", "model")):
-        on = [Shard(2) if n == src else Replicate() for n in names]
-        to = [Shard(2) if n == dst else Replicate() for n in names]
-        xd = distribute_tensor(x, mesh, on, src_data_rank=None).requires_grad_()
-        got = relaid(xd, to)
+    for name in RELAID_WAYS:
+        src, dst = name.split("_to_")
+        xd = distribute_tensor(x, mesh, axes[src], src_data_rank=None).requires_grad_()
+        swaps, swap = [], R._dims_swapped
+        R._dims_swapped = lambda *a: swaps.append(1) or swap(*a)
+        try:
+            got = relaid(xd, axes[dst])
+        finally:
+            R._dims_swapped = swap
         (got.full_tensor() * g).sum().backward()
         out[f"relaid_{name}"] = float((got.full_tensor().detach() - x).abs().max())
         out[f"relaid_{name}_grad"] = float((xd.grad.full_tensor() - g).abs().max())
-        out[f"relaid_{name}_placements"] = got.placements == tuple(to)
+        out[f"relaid_{name}_placements"] = got.placements == tuple(axes[dst])
+        out[f"relaid_{name}_swaps"] = len(swaps)
     return out
 
 
@@ -390,11 +409,19 @@ def test_batch_1_attention_equals_unsharded(world, mesh, case):
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
-@pytest.mark.parametrize("way", ["model_to_data", "data_to_model"])
+@pytest.mark.parametrize("way", RELAID_AXES)
 def test_relaid_moves_a_split_between_axes(world, mesh, way):
     got = world[mesh]
     assert got[f"relaid_{way}"] == 0.0 and got[f"relaid_{way}_grad"] == 0.0
     assert got[f"relaid_{way}_placements"]
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("way", RELAID_DIMS)
+def test_relaid_swaps_a_split_between_dims(world, mesh, way):
+    got = world[mesh]
+    assert got[f"relaid_{way}"] == 0.0 and got[f"relaid_{way}_grad"] == 0.0
+    assert got[f"relaid_{way}_placements"] and got[f"relaid_{way}_swaps"] == 1
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))

@@ -12,7 +12,9 @@ norm in different orders); gradients per leaf, as the relative L2 error,
 activations (measured at most 3.3e-2: every layer rounds its activations
 to bf16, 2^-8 relative, in a different order on each side). MoE configs
 compare with fp32 activations only: in bf16 a router near-tie can send a
-token to other experts on each side (tests/test_torch_lm.py)."""
+token to other experts on each side (tests/test_torch_lm.py).
+command-r-plus's parallel block holds the hand-written backward of its
+two last products (`lm.products_saved_first`) to the reference's."""
 
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from repro_torch.models import lm as LM
 from repro_torch.models import make_model
 from repro_torch.train import optimizer as OPT
 
-ARCHS = ["smollm-135m", "mamba2-1.3b"]
+ARCHS = ["smollm-135m", "mamba2-1.3b", "command-r-plus-104b"]
 MOE_ARCHS = ["granite-moe-3b-a800m", "jamba-1.5-large-398b"]
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
