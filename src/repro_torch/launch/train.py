@@ -29,6 +29,7 @@ from repro_torch.data.loader import DeviceFeeder
 from repro_torch.io import IOPolicy, open_store
 from repro_torch.launch.mesh import mesh_host_shard
 from repro_torch.models import make_model
+from repro_torch.spans import StepClock
 from repro_torch.store import LinkModel, MemTier, SimS3Store
 from repro_torch.train import (
     AdamWConfig,
@@ -78,31 +79,6 @@ class TrainResult:
     wall_s: float = 0.0
     restore_s: float | None = None
     fs_stats: dict = field(default_factory=dict)
-
-
-class _StepClock:
-    """Step boundaries: CUDA events on the current stream (read once at the
-    end, so the loop never waits for the card), or the host clock on the
-    CPU."""
-
-    def __init__(self, device: torch.device) -> None:
-        self.device = device
-        self.marks: list = []
-
-    def mark(self) -> None:
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def step_ms(self) -> list[float]:
-        pairs = zip(self.marks, self.marks[1:])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            return [a.elapsed_time(b) for a, b in pairs]
-        return [(b - a) * 1e3 for a, b in pairs]
 
 
 def main(argv: list[str] | None = None) -> TrainResult:
@@ -216,7 +192,7 @@ def main(argv: list[str] | None = None) -> TrainResult:
     # --- loop ----------------------------------------------------------------
     result = TrainResult(start_step=start_step, restore_s=restore_s)
     metrics_log: list[dict] = []
-    clock = _StepClock(device)
+    clock = StepClock(device)
     feeder = DeviceFeeder(_with_cursor(loader), depth=2, device=device)
     try:
         it = iter(feeder)

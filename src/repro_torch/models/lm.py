@@ -14,6 +14,11 @@ a Switch auxiliary loss, summed over the stack. The training loss is
 `lm_loss`: the hidden states, then `chunked_xent` over the output table,
 plus the weighted aux term for MoE configs.
 
+While a profiler session runs, each block's token mixer (``layer.mixer``;
+not in a parallel block, whose last products mix both branches) and FFN
+(``layer.mlp``) and the loss head (``layer.loss_head``) are spans
+(`repro_torch.spans`), forward and backward.
+
 Under a mesh the hidden states are laid out where the reference's
 `constrain` puts them, the caches `lm_prefill` builds are sharded by
 `stack_cache_axes` (the layout of the decode cells' abstract caches), and
@@ -32,6 +37,7 @@ import torch
 from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import BlockDef, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -181,31 +187,35 @@ def block_fwd(
     # Cohere's parallel block with a dense FFN: both branches' inner work,
     # then both last products (`products_saved_first`).
     parallel = cfg.parallel_block and bd.mixer == "attn" and bd.ffn == "dense"
-    if bd.mixer == "attn":
-        ctx, wo, kv = L.attention_context(
-            p["attn"], cfg, h,
-            start=start,
-            causal=causal,
-            cache=None if cache is None else cache.get("attn"),
-            update_cache=update_cache,
-            q_chunk=q_chunk,
-        )
-        if kv is not None:
-            new_cache["attn"] = kv
-        if parallel:
-            hid, w_down = L.mlp_hidden(p["ffn"], cfg, h)
-            y_attn, y_ffn = products_saved_first(ctx, wo, hid, w_down)
-            attn_out = L.attention_output(p["attn"], y_attn)
+    # The parallel block's last products mix both branches: no layer span.
+    with spans.layer("layer.mixer", enabled=not parallel) as mixer:
+        hm = mixer.input(h)
+        if bd.mixer == "attn":
+            ctx, wo, kv = L.attention_context(
+                p["attn"], cfg, hm,
+                start=start,
+                causal=causal,
+                cache=None if cache is None else cache.get("attn"),
+                update_cache=update_cache,
+                q_chunk=q_chunk,
+            )
+            if kv is not None:
+                new_cache["attn"] = kv
+            if parallel:
+                hid, w_down = L.mlp_hidden(p["ffn"], cfg, h)
+                y_attn, y_ffn = products_saved_first(ctx, wo, hid, w_down)
+                attn_out = L.attention_output(p["attn"], y_attn)
+            else:
+                attn_out = L.attention_output(p["attn"], ctx @ wo)
         else:
-            attn_out = L.attention_output(p["attn"], ctx @ wo)
-    else:
-        attn_out, mc = S.mamba_block(
-            p["mamba"], cfg, h,
-            cache=None if cache is None else cache.get("mamba"),
-            update_cache=update_cache,
-        )
-        if mc is not None:
-            new_cache["mamba"] = mc
+            attn_out, mc = S.mamba_block(
+                p["mamba"], cfg, hm,
+                cache=None if cache is None else cache.get("mamba"),
+                update_cache=update_cache,
+            )
+            if mc is not None:
+                new_cache["mamba"] = mc
+        attn_out = mixer.output(attn_out)
 
     aux = None
     if cfg.parallel_block and bd.ffn is not None:
@@ -232,7 +242,9 @@ def block_fwd(
 
     if bd.ffn is not None:
         h2 = whole_along_d(L.apply_norm(p["norm2"], cfg, x))
-        ffn_out, aux = _ffn(p["ffn"], cfg, bd, h2)
+        with spans.layer("layer.mlp") as mlp:
+            ffn_out, aux = _ffn(p["ffn"], cfg, bd, mlp.input(h2))
+            ffn_out = mlp.output(ffn_out)
         x = x + rm * ffn_out
     return x, new_cache, aux
 
@@ -547,7 +559,8 @@ def lm_loss(
     for MoE configs, `moe_aux_loss_weight` times the stack's Switch aux loss
     over the number of layers."""
     h, _, aux = lm_hidden(p, cfg, inputs, q_chunk=q_chunk, remat=remat)
-    loss = chunked_xent(p, cfg, h, labels, chunk=loss_chunk)
+    with spans.layer("layer.loss_head") as head:
+        loss = head.output(chunked_xent(p, cfg, head.input(h), labels, chunk=loss_chunk))
     if cfg.is_moe:
         loss = loss + cfg.moe_aux_loss_weight * aux / max(cfg.num_layers, 1)
     return loss

@@ -5,6 +5,10 @@ The forward and backward passes are plain PyTorch autograd (the
 hand-written kernels are forward only and are not on this path); the
 gradients of the parameter leaves come from `torch.autograd.grad`. The
 step keeps its metrics on the device, so it never waits for the card.
+While a profiler session runs, the step and its phases are spans
+(`repro_torch.spans`): ``step``, and in it ``step.forward``,
+``step.backward`` (the periods' recompute under remat included) and
+``step.optimizer``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import NamedTuple
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch import tree
+from repro_torch import spans, tree
 from repro_torch.models.api import Model
 from repro_torch.models.spec import abstract_tensor
 from repro_torch.sharding.rules import NamedSharding
@@ -120,37 +124,40 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig,
     are 0-d tensors there (``loss``, ``grad_norm``, ``lr``)."""
 
     def loss_and_grads(params, batch: dict) -> tuple[torch.Tensor, dict]:
-        # Fresh leaves that share the parameters' memory and record a graph;
-        # the state's own tensors never require grad.
-        live = tree.map_leaves(lambda p: p.detach().requires_grad_(True), params)
-        with torch.enable_grad():
+        with spans.span("step.forward"), torch.enable_grad():
+            # Fresh leaves that share the parameters' memory and record a
+            # graph; the state's own tensors never require grad.
+            live = tree.map_leaves(lambda p: p.detach().requires_grad_(True), params)
             loss = model.loss(live, batch, q_chunk=step_cfg.q_chunk,
                               loss_chunk=step_cfg.loss_chunk, remat=step_cfg.remat)
-            leaves = tree.flatten(live)
+        leaves = tree.flatten(live)
+        with spans.span("step.backward"), torch.enable_grad():
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else _laid_out_as(g, p)
                  for p, g in zip(leaves, grads)]
         return loss.detach(), tree.unflatten(params, iter(grads))
 
     def train_step(state: TrainState, batch: dict):
-        if step_cfg.microbatches <= 1:
-            loss, grads = loss_and_grads(state.params, batch)
-        else:
-            # The reference adds each microbatch to fp32 zeros: the first
-            # sum is that microbatch itself, so it starts the running sums.
-            loss = grads = None
-            for micro in _split_batch(batch, step_cfg.microbatches):
-                loss_i, g_i = loss_and_grads(state.params, micro)
-                if loss is None:
-                    loss, grads = loss_i.float(), tree.map_leaves(lambda g: g.float(), g_i)
-                else:
-                    loss = loss + loss_i
-                    grads = tree.map_leaves(lambda a, b: a + b.float(), grads, g_i)
-            inv = 1.0 / step_cfg.microbatches
-            loss = loss * inv
-            grads = tree.map_leaves(lambda g: g * inv, grads)
+        with spans.span("step"):
+            if step_cfg.microbatches <= 1:
+                loss, grads = loss_and_grads(state.params, batch)
+            else:
+                # The reference adds each microbatch to fp32 zeros: the first
+                # sum is that microbatch itself, so it starts the running sums.
+                loss = grads = None
+                for micro in _split_batch(batch, step_cfg.microbatches):
+                    loss_i, g_i = loss_and_grads(state.params, micro)
+                    if loss is None:
+                        loss, grads = loss_i.float(), tree.map_leaves(lambda g: g.float(), g_i)
+                    else:
+                        loss = loss + loss_i
+                        grads = tree.map_leaves(lambda a, b: a + b.float(), grads, g_i)
+                inv = 1.0 / step_cfg.microbatches
+                loss = loss * inv
+                grads = tree.map_leaves(lambda g: g * inv, grads)
 
-        params, opt, metrics = apply_updates(opt_cfg, state.params, grads, state.opt)
-        return TrainState(params, opt), {"loss": loss, **metrics}
+            with spans.span("step.optimizer"):
+                params, opt, metrics = apply_updates(opt_cfg, state.params, grads, state.opt)
+            return TrainState(params, opt), {"loss": loss, **metrics}
 
     return train_step
