@@ -14,7 +14,10 @@ Phases, each of which exits non-zero on a failed check:
      to a relative L2 error over its whole output), and timed at
      both serving waves beside the plain version, its bound and, where one
      exists, a PyTorch library call, as eager calls and as device time
-     over a CUDA graph;
+     over a CUDA graph; and the flash training kernels' forward and
+     backward at olmo-1b's training shape, each beside its bound, with the
+     plain version's and `scaled_dot_product_attention`'s forward and
+     backward;
   3. the attention path: full-width smollm-135m (random weights from a
      seed) served by `ServeEngine`, 8 prompts of 512 tokens and 4 of 128,
      32 new tokens each; the launch counts must show that every layer's
@@ -86,14 +89,15 @@ Phases, each of which exits non-zero on a failed check:
      store, through the rolling-prefetch loader and the device feeder, with
      write-behind checkpoints every 20 steps to a simulated store at 10 ms a
      request and 1000 MB/s; the loss must be finite and not climb (the
-     shards are uniform random tokens), and neither kernel may launch. A
+     shards are uniform random tokens), the scan may not launch and the
+     attention must train through the flash kernel with its backward. A
      second run resumes from the step-20 checkpoint and must repeat the
      first run's losses from step 21 on; the same state is restored and
      saved again, timed; the loss of the driver's first batch, trained on
      repeatedly, must fall; two steps of the same parameters and batches
      (fp32 activations, batch 2 x 128) on the card and on the host CPU must
      agree; a profiled window shows where a step's time goes; and the
-     kernels' entries must refuse a CUDA input that requires grad.
+     forward-only entries must refuse a CUDA input that requires grad.
      Tokens/s, step ms, the feeder's wait, peak memory, save and restore
      seconds, and the loader's GETs and bytes printed;
   4. the paper's two use cases (examples/torch/streamline_analysis.py):
@@ -239,6 +243,14 @@ WHISPER_SHAPE = (8, 20, 20, 1500, 1500, 64, False, "bfloat16")
 CODEQWEN_SHAPE = (8, 32, 32, 512, 512, 128, True, "bfloat16")
 CODEQWEN_WAVE2 = (4, 32, 32, 128, 128, 128, True, "bfloat16")
 OLMO_SHAPE = (8, 16, 16, 512, 512, 128, True, "bfloat16")
+TRAIN_SHAPE = (8, 16, 16, 2048, 2048, 128, True, "bfloat16")   # olmo-1b's training attention
+SMOLLM_TRAIN_SHAPE = (8, 9, 3, 256, 256, 64, True, "bfloat16")  # smollm-135m's, phase 3d's run
+# The training kernels against the plain version's fp32 autograd on the same
+# bf16 inputs, as tests/test_torch_cuda_kernels.py holds them: o, dq, dk and
+# dv by a relative L2 error of 1e-2 (five bf16 roundings' worth: q, k, v and
+# dO as given, P and dS before their products, each output once); lse, fp32
+# throughout, to 1e-4 absolute.
+TRAIN_REL_TOL, TRAIN_LSE_TOL = 1e-2, 1e-4
 SSD_CASES = [
     # (b, s, h, g, p, n, chunk, dtype): the JAX package's test sweep ...
     (1, 128, 4, 1, 32, 32, 32, "float32"),
@@ -330,7 +342,7 @@ def ptxas_summary(path: str) -> list[str]:
         for line in f:
             if m := re.search(r"Compiling entry function '(\w+)'", line):
                 name = m.group(1)
-                if k := re.search(r"\d+([a-z_]+(?:bf16|f32)_kernel)I(\w*?)EEv", name):
+                if k := re.search(r"\d+([a-z_]+(?:bf16|f32|dq|dkdv)_kernel)I(\w*?)EEv", name):
                     args = re.findall(r"L[ib](\d+)E", k.group(2) + "E")
                     name = f"{k.group(1)}<{', '.join(args)}>"
             elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
@@ -527,6 +539,116 @@ def flash_timing(torch, fa, case, what: str, seed: int) -> dict:
     return {"shape": list(case), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "library_device_ms": dev_sdpa}
+
+
+def train_flash_work(q, k, causal: bool) -> tuple[int, int, int, int]:
+    """Bytes and visible work of the training forward and backward: the
+    forward reads q, k, v and writes o and lse; the backward reads q, k, v,
+    o, dO and lse and writes dq, dk, dv. Work: the forward's two products
+    (4 D operations per visible pair), the backward's five (S again, dP, dV,
+    dQ, dK: 10 D)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    el = q.element_size()
+    qo, kv, lse = b * hq * sq * d * el, b * hkv * sk * d * el, b * hq * sq * 4
+    visible = sum(min(r + 1, sk) for r in range(sq)) if causal else sq * sk
+    pairs = visible * b * hq
+    return 2 * qo + 2 * kv + lse, 4 * qo + 4 * kv + lse, 4 * d * pairs, 10 * d * pairs
+
+
+def check_train_kernels(torch, fa, case, q, k, v, dout) -> dict:
+    """Run the training forward and backward on q, k, v and dout at `case`
+    and hold o, lse, dq, dk and dv to `flash_attention_plain`'s fp32
+    autograd on the same inputs; fail on a miss. Returns the errors."""
+    causal = case[6]
+    o, lse = fa.flash_attention_train_fwd_cuda(q, k, v, causal=causal)
+    dq, dk, dv = fa.flash_attention_train_bwd_cuda(q, k, v, o, lse, dout, causal=causal)
+    live = [t.float().requires_grad_() for t in (q, k, v)]
+    want_o = fa.flash_attention_plain(*live, causal=causal)
+    want_o.backward(dout.float())
+    group = q.shape[1] // k.shape[1]
+    s = q.float() @ k.float().repeat_interleave(group, 1).transpose(-1, -2) * q.shape[-1] ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones_like(s, dtype=torch.bool).triu(1), float("-inf"))
+    want_lse = torch.logsumexp(s, dim=-1)
+    del s
+    sq = q.shape[2]
+    errs = {"lse": (lse[..., :sq] - want_lse).abs().max().item()}
+    for name, got, want in (("o", o, want_o.detach()), ("dq", dq, live[0].grad),
+                            ("dk", dk, live[1].grad), ("dv", dv, live[2].grad)):
+        errs[name] = ((got.float() - want).norm() / want.norm()).item()
+    past_sq = bool(torch.isinf(lse[..., sq:]).all())
+    ok = (past_sq and errs["lse"] <= TRAIN_LSE_TOL
+          and all(errs[n] <= TRAIN_REL_TOL for n in ("o", "dq", "dk", "dv")))
+    print(f"flash training {case} against the plain version's fp32 autograd: relative L2 "
+          f"{', '.join(f'{n} {errs[n]:.3e}' for n in ('o', 'dq', 'dk', 'dv'))} (tol "
+          f"{TRAIN_REL_TOL}); lse max|diff| {errs['lse']:.3e} (tol {TRAIN_LSE_TOL}), +inf past "
+          f"Sq: {past_sq} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"flash training kernels disagree with the plain version at {case}")
+    return errs
+
+
+def phase_train_kernels(torch, fa) -> dict:
+    """The training kernels at olmo-1b's shape, causal, and at smollm-135m's
+    (D 64, GQA groups of 3), each held to the plain version's fp32 autograd
+    (`check_train_kernels`). At olmo-1b's shape, the forward (with lse) and
+    the backward timed apart (CUDA events over eager calls), each beside its
+    bound, the plain version under autograd (fp32 scores) and
+    `scaled_dot_product_attention`'s forward and backward as the library's
+    yardstick, which the port never calls."""
+    b, hq, hkv, sq, sk, d, causal, _ = TRAIN_SHAPE
+    q, k, v = flash_inputs(torch, TRAIN_SHAPE, seed=7)
+    dout = torch.randn(q.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(8)).to(q.dtype)
+    fwd_bytes, bwd_bytes, fwd_flops, bwd_flops = train_flash_work(q, k, causal)
+    fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops, q.dtype)
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops, q.dtype)
+    o, lse = fa.flash_attention_train_fwd_cuda(q, k, v, causal=causal)
+
+    def fwd():
+        fa.flash_attention_train_fwd_cuda(q, k, v, causal=causal)
+
+    def bwd():
+        fa.flash_attention_train_bwd_cuda(q, k, v, o, lse, dout, causal=causal)
+
+    def plain():
+        live = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa.flash_attention_plain(*live, causal=causal).backward(dout)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    group = hq // hkv
+
+    def library():
+        live = [t.detach().requires_grad_() for t in (q, k.repeat_interleave(group, 1),
+                                                      v.repeat_interleave(group, 1))]
+        sdpa(*live, is_causal=causal).backward(dout)
+
+    fwd_ms, bwd_ms = cuda_ms(torch, fwd), cuda_ms(torch, bwd)
+    plain_ms = cuda_ms(torch, plain, reps=5, inner=2)
+    library_ms = cuda_ms(torch, library)
+    fwd_ms2, bwd_ms2 = cuda_ms(torch, fwd), cuda_ms(torch, bwd)
+    fwd_ms, bwd_ms = statistics.median([fwd_ms, fwd_ms2]), statistics.median([bwd_ms, bwd_ms2])
+    print(f"flash training at {TRAIN_SHAPE}: forward {fwd_ms:.4f} ms (bound {fwd_bound:.4f} ms, "
+          f"{fwd_by}: {fwd_flops / 1e9:.1f} GFLOP, {fwd_bytes / 1e6:.1f} MB; "
+          f"{fwd_bound / fwd_ms:.1%} of it), backward {bwd_ms:.4f} ms (bound {bwd_bound:.4f} ms, "
+          f"{bwd_by}: {bwd_flops / 1e9:.1f} GFLOP, {bwd_bytes / 1e6:.1f} MB; "
+          f"{bwd_bound / bwd_ms:.1%} of it); forward and backward {fwd_ms + bwd_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, sdpa (library) {library_ms:.4f} ms: "
+          f"{(fwd_ms + bwd_ms) / library_ms:.2f}x the library's time")
+    for which in ("train_forward", "dq", "dkdv"):
+        blocks, smem = fa.occupancy(torch.bfloat16, d, kernel=which)
+        print(f"occupancy flash {which} D {d}: {smem} bytes of shared memory, {blocks} "
+              f"CTAs per SM")
+    errors = {str(TRAIN_SHAPE): check_train_kernels(torch, fa, TRAIN_SHAPE, q, k, v, dout)}
+    small = flash_inputs(torch, SMOLLM_TRAIN_SHAPE, seed=9)
+    small_dout = torch.randn(small[0].shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(10)).to(small[0].dtype)
+    errors[str(SMOLLM_TRAIN_SHAPE)] = check_train_kernels(torch, fa, SMOLLM_TRAIN_SHAPE, *small,
+                                                          small_dout)
+    return {"shape": list(TRAIN_SHAPE), "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "forward_bound_ms": fwd_bound, "backward_bound_ms": bwd_bound,
+            "plain_ms": plain_ms, "library_ms": library_ms, "errors": errors}
 
 
 def ssd_inputs(torch, case, seed: int, initial: bool = True):
@@ -810,7 +932,8 @@ def phase_moe_cross_check(torch, np, kernels: dict) -> None:
     made on the card and copied to the host CPU: prefill logits of 2
     prompts of 128 (flash attention on the card, the plain version on the
     host), `lm_loss` with its aux term and the gradients of the router and
-    expert weights (the plain path on both). Held with fp32 activations,
+    expert weights (in bf16 the card's attention through the flash training
+    kernels, in fp32 the plain path on both). Held with fp32 activations,
     where the two sides differ only in summation order and a routing flip
     at a near-tie stays unlikely; the bf16 numbers and each run's share of
     routing decisions that agree are printed."""
@@ -833,7 +956,7 @@ def phase_moe_cross_check(torch, np, kernels: dict) -> None:
         L.COMPUTE_DTYPE = getattr(torch, dtype)
         try:
             flash = kernels["flash_attention"]
-            flash.launches = 0
+            flash.launches = flash.backward_launches = 0
             t0 = time.perf_counter()
             lc, loss_c, gc, pc = moe_run(torch, cfg, card, inputs.cuda(), labels.cuda(),
                                          paths)
@@ -860,9 +983,16 @@ def phase_moe_cross_check(torch, np, kernels: dict) -> None:
               f"agrees on {agree:.4%} of {sum(x.numel() for x in pc)} choices; "
               f"{launched} flash launches; card {t_card:.2f} s, host cpu {t_host:.2f} s"
               f"{'' if held else ' (printed only)'}")
-        if launched != cfg.num_layers:
-            fail(f"moe cross-check: {launched} flash launches, want {cfg.num_layers} "
-                 f"(the no-grad forward's layers; the loss takes the plain path)")
+        # The no-grad forward launches the serving kernel once a layer. In
+        # bf16 the loss's attention trains through the flash kernel: its
+        # forward and the period's recompute in every layer, its backward in
+        # every layer after block 0's attention (the gradients taken are
+        # block 0's FFN's). In fp32 the loss takes the plain path.
+        trained = dtype == "bfloat16"
+        want = (cfg.num_layers * (3 if trained else 1), cfg.num_layers - 1 if trained else 0)
+        if (launched, flash.backward_launches) != want:
+            fail(f"moe cross-check: {launched} flash launches and {flash.backward_launches} "
+                 f"backward, want {want}")
         if held and not (ok_logits and math.isfinite(loss_c) and rel_loss <= CROSS_TOL
                          and all(v <= CROSS_TOL for v in grad_err.values())):
             fail("moe cross-check: the card disagrees with the host CPU in fp32 activations")
@@ -1866,9 +1996,12 @@ def phase_train(torch, np, kernels: dict) -> None:
     """Train full-width smollm-135m from the simulated object store through
     the port's driver, resume from its step-20 checkpoint, time a restore
     and a save of the TrainState, cross-check two steps against the host
-    CPU, and show that the kernels' entries refuse inputs that need grad.
-    The kernels' counts are set to 0 before the first run and must read 0
-    after the last: training takes the plain paths."""
+    CPU, and show that the forward-only entries refuse inputs that need
+    grad. The kernels' counts are set to 0 right before the first run and
+    read right after it: smollm-135m's attention (D 64, bf16) trains through
+    the flash kernel with its backward, so each step must launch the
+    forward twice a layer (the forward and remat's recompute) and the
+    backward once, and the scan never (training takes the plain SSD)."""
     from repro_torch.ckpt import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.io import open_store
@@ -1881,12 +2014,22 @@ def phase_train(torch, np, kernels: dict) -> None:
     uri_a = TRAIN_CKPT_URI.format(bucket="train-a")
     uri_b = TRAIN_CKPT_URI.format(bucket="train-b")
     torch.cuda.synchronize()
-    for mod in kernels.values():
-        mod.launches = 0
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    for mod in kernels.values():
+        mod.launches = 0
+    kernels["flash_attention"].backward_launches = 0
     a = train.main(TRAIN_ARGS + ["--ckpt-store", uri_a])
+    counts = {name: mod.launches for name, mod in kernels.items()}
+    backward = kernels["flash_attention"].backward_launches
     peak = torch.cuda.max_memory_allocated() - base
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    layers = get_config("smollm-135m").num_layers
+    want = {"flash_attention": 2 * steps * layers, "ssd_scan": 0}
+    print(f"train: {steps} steps of {layers} layers launched {counts}, flash backward "
+          f"{backward}; want {want}, flash backward {steps * layers}")
+    if counts != want or backward != steps * layers:
+        fail(f"training's launches: {counts}, {backward} flash backward")
     losses = a.losses
     if len(losses) != 40 or not all(math.isfinite(x) for x in losses):
         fail(f"training: {len(losses)} losses, finite: {all(map(math.isfinite, losses))}")
@@ -1950,9 +2093,6 @@ def phase_train(torch, np, kernels: dict) -> None:
     phase_train_cross_check(torch, np)
     phase_train_profile(torch, np)
     counts = {name: mod.launches for name, mod in kernels.items()}
-    print(f"train: kernel launches while training {counts} (want every one 0)")
-    if any(counts.values()):
-        fail(f"training launched a forward-only kernel: {counts}")
 
     # The kernels' entries refuse a CUDA input that requires grad.
     q = torch.randn((1, 2, 64, 64), device="cuda", dtype=torch.bfloat16, requires_grad=True)
@@ -1967,7 +2107,7 @@ def phase_train(torch, np, kernels: dict) -> None:
             print(f"train: ops.{name} on a CUDA input that requires grad raises: {e}")
         else:
             fail(f"ops.{name} took a CUDA input that requires grad")
-    if any(mod.launches for mod in kernels.values()):
+    if {name: mod.launches for name, mod in kernels.items()} != counts:
         fail("a refused call launched a kernel")
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
 
@@ -2906,6 +3046,7 @@ def main() -> None:
 
     with phase_clock("kernels"):
         flash = phase_kernels(torch, fa)
+        flash["training"] = phase_train_kernels(torch, fa)
         scan = phase_ssd_kernel(torch, ssd)
 
     with phase_clock("serve smollm-135m, restore"):

@@ -1,4 +1,5 @@
-// Flash attention, forward only, for NVIDIA Hopper (sm_90a).
+// Flash attention for NVIDIA Hopper (sm_90a): the forward of the serving
+// path, and the forward and backward of the training path.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel`, called through
 // `flash_attention` in src/repro/kernels/flash_attention.py, and computes the
@@ -16,7 +17,7 @@
 // (staging that does not overlap the products) and products off the tensor
 // cores.
 //
-// Two kernels, chosen by dtype:
+// Serving's forward: two kernels, chosen by dtype:
 //
 // * bf16 (the serving path): `flash_fwd_bf16_kernel`, on the tensor cores.
 //   One CTA of 4 warps per (b, hq, 64-row q tile), heaviest causal tiles
@@ -57,6 +58,66 @@
 // tensor through element strides with a unit stride on the head dim, so the
 // caller passes (B, S, H, D) activations as (B, H, S, D) views without a copy.
 //
+// Training (bf16, head dims 64 and 128). The JAX package trains through its
+// plain attention (`_attn_core` in src/repro/models/layers.py: bf16 q and k
+// products with fp32 sums, an fp32 softmax, P rounded to v's dtype before
+// P V); no Pallas kernel is replaced. Training's kernels compute that
+// function and its gradient without writing a score or a probability to
+// device memory.
+//
+// * The forward is `flash_fwd_bf16_kernel` with kLse on: it also writes each
+//   query row's log-sum-exp of its scaled, masked scores (natural log,
+//   fp32) to lse[(b * hq + h) * lse_rows + row], for every row of the row's
+//   64-row tile: +inf past Sq, so that the backward, which reads whole
+//   tiles, finds probabilities of 0 there. Serving's instantiations leave
+//   it off (a null `lse`): the epilogue's extra registers would make the
+//   D 64 kernel spill, and the output's bits are the same either way.
+//
+// What bounds the backward on this card. At olmo-1b's training shape (8, 16,
+// 2048, 128), causal, its five products of the visible blocks are 344 GFLOP
+// (2.5 forward products' worth) against 34 MB of q, k, v, o, dO and their
+// gradients: 0.35 ms of tensor-core time against 0.01 ms of bytes. It is
+// bound by operations; what a kernel can lose is products off the tensor
+// cores, staging that does not overlap them, and registers that force
+// spills or leave one CTA an SM.
+//
+// The backward is two kernels, in this order on one stream; neither uses an
+// atomic, so two runs give the same bits:
+//
+// * `flash_bwd_dq_kernel`: one CTA of 4 warps per (b, q head, 64-row q
+//   tile), heaviest causal tiles first; warp w owns q rows 16w..16w+15. It
+//   first computes delta = rowsum(dO o O) in fp32 for its rows (written out
+//   for the next kernel; 0 past Sq) while its q and dO tiles and the first
+//   k and v tiles land in shared memory through cp.async. Then, over the kv
+//   tiles up to the causal diagonal (2-stage ring as in the forward):
+//   S = Q K^T and dP = dO V^T on mma.sync m16n8k16 with fp32 sums,
+//   P = exp2(S * scale * log2 e - lse * log2 e) from the forward's lse,
+//   dS = P o (dP - delta), and dQ += dS K with dS rounded to bf16 and
+//   repacked in registers as the A operand (K through ldmatrix.trans).
+//   dQ = scale * the sum, stored in q's dtype.
+// * `flash_bwd_dkdv_kernel`: one CTA of 4 warps per (b, kv head, 64-row kv
+//   tile); warp w owns kv rows 16w..16w+15, and the CTA loops over the q
+//   tiles from the diagonal on of every q head that reads this kv head
+//   (head h reads kv head h / group), so GQA's sum over the group happens
+//   in the CTA's fp32 registers. The k and v tiles stay in shared memory;
+//   q, dO, lse and delta tiles come through a 2-stage cp.async ring. Per q
+//   tile, in passes of NQ columns (32 at head dim 128, which keeps the
+//   score fragments' registers beside dK's and dV's 128): S^T = K Q^T,
+//   P^T from lse, dV += P^T dO (P rounded to bf16, as the forward rounds
+//   it), dP^T = V dO^T, dS^T = P^T o (dP^T - delta), dK += dS^T Q (dS
+//   rounded to bf16). dK = scale * the sum.
+//
+// dS enters the dQ and dK products rounded to bf16, as the JAX package's
+// default-precision products round their fp32 operands on its TPU; every
+// sum is fp32. Causal tiles wholly above the diagonal are skipped; the tiles
+// that cross it, and the ragged edges of Sk, are masked by a select to 0 of
+// P; rows past Sq read lse = +inf from the forward, so their P is 0 too.
+// Shared memory: 6 tiles of 64 x (D + 8) bf16 (104,448 bytes at D 128,
+// with 1 KB of lse and delta in the dK/dV kernel), 2 CTAs an SM. The
+// training entries take only tensors whose row starts are 16-byte aligned
+// (cp.async; the wrapper copies any other), and lse and delta as (B, Hq,
+// Sq rounded up to 64) contiguous fp32.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC; bound through ctypes (a plain C interface).
 
@@ -74,6 +135,7 @@ constexpr int BK = 64;  // kv rows per staged tile
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kUnsupported = -1;
+constexpr int kUnaligned = -2;
 
 struct Params {
   const void* q;
@@ -86,6 +148,8 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   int batch, hq, group, sq, sk, causal;
   float scale;
+  float* lse;    // training's forward: (B, Hq, lse_rows) fp32, see the top
+  int lse_rows;  // Sq rounded up to a multiple of BQ
 };
 
 // --------------------------------------------------------------------------
@@ -264,7 +328,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p)
   }
 }
 
-
 // --------------------------------------------------------------------------
 // bf16: tensor cores
 // --------------------------------------------------------------------------
@@ -276,7 +339,7 @@ constexpr int bf16_smem_bytes() {
   return 5 * BQ * (D + 8) * int(sizeof(bf16));  // Q, then 2 stages of K and V
 }
 
-template <int D, bool kAsync>
+template <int D, bool kAsync, bool kLse = false>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1) flash_fwd_bf16_kernel(const Params p) {
   constexpr int LD = D + 8;    // shared row stride in elements: 16-byte pad
   constexpr int KD = D / 16;   // k-blocks of the head dim (Q K^T)
@@ -439,6 +502,16 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1) flash_fwd_bf16_kern
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
   }
+  if (kLse && t4 == 0) {
+    // m and l are in the base-2 domain of scale * log2(e) * S.
+    float* lse = p.lse + (static_cast<long long>(b) * p.hq + h) * p.lse_rows;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + g + 8 * r;
+      lse[row] = row < p.sq && l[r] > 0.f ? (m[r] + log2f(l[r])) / kLog2e
+                                               : __int_as_float(0x7f800000);  // +inf
+    }
+  }
   bf16* Os = Qs + warp * 16 * LD;
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
@@ -458,6 +531,397 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 4 : 1) flash_fwd_bf16_kern
 }
 
 // --------------------------------------------------------------------------
+// bf16 backward: dQ, then dK and dV
+// --------------------------------------------------------------------------
+
+// Tensors of the backward, in the order of the strides the C entry takes.
+enum Tensor { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV, kTensors };
+
+struct BwdParams {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* o;
+  const bf16* dout;
+  const float* lse;  // (B, Hq, rows), the forward's
+  float* delta;      // (B, Hq, rows), written by the dQ kernel
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  long long sb[kTensors], sh[kTensors], ss[kTensors];  // batch, head, sequence
+  int batch, hq, hkv, group, sq, sk, rows, causal;
+  float scale;
+};
+
+template <int D>
+constexpr int bwd_smem_bytes() {
+  return 6 * BQ * (D + 8) * int(sizeof(bf16));
+}
+
+// 64 rows from `row0` of a (rows, D) bf16 tensor into a [64][D + 8] tile of
+// shared memory through cp.async; rows at or past `rows` are zeros.
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long ss, int row0,
+                                           int rows) {
+  constexpr int LD = D + 8, CH = D / 8;
+  const uint32_t base = tc::smem_addr(dst);
+#pragma unroll
+  for (int idx = threadIdx.x; idx < 64 * CH; idx += kThreads) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    const bool ok = row0 + r < rows;
+    tc::cp_async16(base + (r * LD + c) * 2, ok ? src + (row0 + r) * ss + c : src, ok ? 16 : 0);
+  }
+}
+
+// A warp's 16 x D fp32 accumulator times `mul`, as bf16 into its 16 rows of
+// a [.][D + 8] tile of shared memory.
+template <int D>
+__device__ __forceinline__ void frag_to_smem(bf16* tile, const float (&acc)[D / 8][4], float mul,
+                                             int g, int t4) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t4;
+    *reinterpret_cast<uint32_t*>(tile + g * LD + c) = tc::pack_bf16(acc[j][0] * mul, acc[j][1] * mul);
+    *reinterpret_cast<uint32_t*>(tile + (g + 8) * LD + c) =
+        tc::pack_bf16(acc[j][2] * mul, acc[j][3] * mul);
+  }
+}
+
+// A warp's 16 rows of a shared tile out to rows row0.. of a tensor, in
+// 16-byte stores; rows at or past `rows` are not stored.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, long long ss, const bf16* tile, int row0,
+                                           int rows, int lane) {
+  constexpr int LD = D + 8, CH = D / 8;
+#pragma unroll
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    if (row0 + r < rows)
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * ss + c) =
+          *reinterpret_cast<const uint4*>(tile + r * LD + c);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_kernel(const BwdParams p) {
+  constexpr int LD = D + 8, KD = D / 16, ND = D / 8, NS = BK / 8;
+  static_assert(BQ == kWarps * 16 && D % 64 == 0, "tile shape");
+
+  extern __shared__ __align__(16) bf16 sm[];
+  bf16* Qs = sm;                // [BQ][LD]; the dQ tile at the end
+  bf16* Ds = Qs + BQ * LD;      // dO, [BQ][LD]
+  bf16* Ks = Ds + BQ * LD;      // [2][BK][LD]
+  bf16* Vs = Ks + 2 * BK * LD;  // [2][BK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
+  const bf16* qb = p.q + b * p.sb[kQ] + h * p.sh[kQ];
+  const bf16* kb = p.k + b * p.sb[kK] + hk * p.sh[kK];
+  const bf16* vb = p.v + b * p.sb[kV] + hk * p.sh[kV];
+  const bf16* ob = p.o + b * p.sb[kO] + h * p.sh[kO];
+  const bf16* dob = p.dout + b * p.sb[kDO] + h * p.sh[kDO];
+  bf16* dqb = p.dq + b * p.sb[kDQ] + h * p.sh[kDQ];
+  const long long lrow = (static_cast<long long>(b) * p.hq + h) * p.rows;
+
+  int n_tiles = (p.sk + BK - 1) / BK;
+  if (p.causal) n_tiles = min(n_tiles, (q_start + BQ - 1) / BK + 1);
+
+  stage_rows<D>(Qs, qb, p.ss[kQ], q_start, p.sq);
+  stage_rows<D>(Ds, dob, p.ss[kDO], q_start, p.sq);
+  stage_rows<D>(Ks, kb, p.ss[kK], 0, p.sk);
+  stage_rows<D>(Vs, vb, p.ss[kV], 0, p.sk);
+  tc::cp_async_commit();
+
+  // delta = rowsum(dO o O) of this warp's rows, read from device memory
+  // while the tiles land; rows g and g + 8 of the strip kept.
+  const int row_lo = q_start + warp * 16;
+  float dlt[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int row = row_lo + i;
+    float acc = 0.f;
+    if (row < p.sq) {
+#pragma unroll
+      for (int j = 0; j < D / 64; ++j) {
+        const int c = 2 * lane + 64 * j;
+        const float2 x = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(dob + row * p.ss[kDO] + c));
+        const float2 y = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(ob + row * p.ss[kO] + c));
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) p.delta[lrow + row] = acc;
+    if (i == g) dlt[0] = acc;
+    if (i == g + 8) dlt[1] = acc;
+  }
+  const float lse2[2] = {p.lse[lrow + row_lo + g] * kLog2e, p.lse[lrow + row_lo + g + 8] * kLog2e};
+
+  // Each lane's ldmatrix addresses (bytes, shared space) at tile offset 0:
+  // q and dO as A operands (this warp's rows); K and V as the B operand
+  // stored [n][k] (of Q K^T and dO V^T); K as the B operand stored [k][n]
+  // (of dS K), loaded transposed.
+  const uint32_t q_frag = tc::smem_addr(Qs + (warp * 16 + tc::a_row(lane)) * LD + tc::a_col(lane));
+  const uint32_t d_frag = tc::smem_addr(Ds + (warp * 16 + tc::a_row(lane)) * LD + tc::a_col(lane));
+  const uint32_t k_frag = tc::smem_addr(Ks + tc::bt_row(lane) * LD + tc::bt_col(lane));
+  const uint32_t v_frag = tc::smem_addr(Vs + tc::bt_row(lane) * LD + tc::bt_col(lane));
+  const uint32_t kt_frag = tc::smem_addr(Ks + tc::bk_row(lane) * LD + tc::bk_col(lane));
+  constexpr uint32_t kStage = BK * LD * sizeof(bf16);
+  const float sl2 = p.scale * kLog2e;
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      stage_rows<D>(Ks + (st ^ 1) * BK * LD, kb, p.ss[kK], (t + 1) * BK, p.sk);
+      stage_rows<D>(Vs + (st ^ 1) * BK * LD, vb, p.ss[kV], (t + 1) * BK, p.sk);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // everything but the tile just issued has landed
+    __syncthreads();
+    const uint32_t ko = st * kStage;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      tc::ldmatrix_x4(a, q_frag + kk * 32);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bf[4];
+        tc::ldmatrix_x4(bf, k_frag + ko + (np * 16 * LD + kk * 16) * 2);
+        tc::mma_bf16(s[2 * np], a, bf[0], bf[1]);
+        tc::mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+      }
+      tc::ldmatrix_x4(a, d_frag + kk * 32);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bf[4];
+        tc::ldmatrix_x4(bf, v_frag + ko + (np * 16 * LD + kk * 16) * 2);
+        tc::mma_bf16(dp[2 * np], a, bf[0], bf[1]);
+        tc::mma_bf16(dp[2 * np + 1], a, bf[2], bf[3]);
+      }
+    }
+
+    // P from lse, then dS = P (dP - delta) in place of dP; masked only on
+    // tiles that cross the diagonal or the end of k.
+    const int k_start = t * BK;
+    const bool edge = k_start + BK > p.sk || (p.causal && k_start + BK - 1 > row_lo);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float pr = exp2f(fmaf(s[j][e], sl2, -lse2[r]));
+        if (edge) {
+          const int row = row_lo + g + 8 * r;
+          const int col = k_start + j * 8 + 2 * t4 + (e & 1);
+          if (!(col < p.sk && (!p.causal || col <= row))) pr = 0.f;
+        }
+        dp[j][e] = pr * (dp[j][e] - dlt[r]);
+      }
+
+    // dQ += dS K: dS rounded to bf16 and repacked in registers.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      tc::acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        uint32_t bf[4];
+        tc::ldmatrix_x4_trans(bf, kt_frag + ko + (kk * 16 * LD + dn * 16) * 2);
+        tc::mma_bf16(dq[2 * dn], a, bf[0], bf[1]);
+        tc::mma_bf16(dq[2 * dn + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // Each warp reads only its own rows of Qs, so it writes its dQ rows there.
+  bf16* tile = Qs + warp * 16 * LD;
+  frag_to_smem<D>(tile, dq, p.scale, g, t4);
+  __syncwarp();
+  store_rows<D>(dqb, p.ss[kDQ], tile, row_lo, p.sq, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkdv_kernel(const BwdParams p) {
+  constexpr int LD = D + 8, KD = D / 16, ND = D / 8;
+  constexpr int NQ = D > 64 ? 32 : 64;  // q columns of a pass
+  constexpr int NN = NQ / 8;            // its n-blocks
+  static_assert(BK == kWarps * 16 && BQ % NQ == 0 && D % 64 == 0, "tile shape");
+
+  extern __shared__ __align__(16) bf16 sm[];
+  bf16* Ks = sm;                // [BK][LD]; the dK tile at the end
+  bf16* Vs = Ks + BK * LD;      // [BK][LD]; the dV tile at the end
+  bf16* Qs = Vs + BK * LD;      // [2][BQ][LD]
+  bf16* Ds = Qs + 2 * BQ * LD;  // dO, [2][BQ][LD]
+  float* Ls = reinterpret_cast<float*>(Ds + 2 * BQ * LD);  // lse, [2][BQ]
+  float* Es = Ls + 2 * BQ;                                 // delta, [2][BQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k_start = blockIdx.x * BK;  // the lowest kv tiles see the most q tiles: first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const bf16* kb = p.k + b * p.sb[kK] + hk * p.sh[kK];
+  const bf16* vb = p.v + b * p.sb[kV] + hk * p.sh[kV];
+  bf16* dkb = p.dk + b * p.sb[kDK] + hk * p.sh[kDK];
+  bf16* dvb = p.dv + b * p.sb[kDV] + hk * p.sh[kDV];
+
+  // Iterations over (head of the group, q tile), q tiles from the diagonal.
+  const int n_qt = (p.sq + BQ - 1) / BQ;
+  const int qt0 = p.causal ? min(k_start / BQ, n_qt) : 0;
+  const int per = n_qt - qt0;
+  const int n_it = p.group * per;
+
+  auto stage_q = [&](int it, int buf) {
+    const int h = hk * p.group + it / per, q_start = (qt0 + it % per) * BQ;
+    stage_rows<D>(Qs + buf * BQ * LD, p.q + b * p.sb[kQ] + h * p.sh[kQ], p.ss[kQ], q_start, p.sq);
+    stage_rows<D>(Ds + buf * BQ * LD, p.dout + b * p.sb[kDO] + h * p.sh[kDO], p.ss[kDO], q_start,
+                  p.sq);
+    const long long lrow = (static_cast<long long>(b) * p.hq + h) * p.rows + q_start;
+    if (tid < BQ / 4)
+      tc::cp_async16(tc::smem_addr(Ls + buf * BQ + 4 * tid), p.lse + lrow + 4 * tid, 16);
+    else if (tid < BQ / 2)
+      tc::cp_async16(tc::smem_addr(Es + buf * BQ + 4 * (tid - BQ / 4)),
+                     p.delta + lrow + 4 * (tid - BQ / 4), 16);
+  };
+
+  stage_rows<D>(Ks, kb, p.ss[kK], k_start, p.sk);
+  stage_rows<D>(Vs, vb, p.ss[kV], k_start, p.sk);
+  if (n_it > 0) stage_q(0, 0);
+  tc::cp_async_commit();
+
+  const int kv_lo = k_start + warp * 16;  // this warp's first kv row
+  // Each lane's ldmatrix addresses at tile offset 0: K and V as A operands
+  // (this warp's rows); q and dO as the B operand stored [n][k] (of K Q^T
+  // and V dO^T), and stored [k][n] (of dS^T Q and P^T dO), loaded
+  // transposed.
+  const uint32_t k_frag = tc::smem_addr(Ks + (warp * 16 + tc::a_row(lane)) * LD + tc::a_col(lane));
+  const uint32_t v_frag = tc::smem_addr(Vs + (warp * 16 + tc::a_row(lane)) * LD + tc::a_col(lane));
+  const uint32_t qn_frag = tc::smem_addr(Qs + tc::bt_row(lane) * LD + tc::bt_col(lane));
+  const uint32_t don_frag = tc::smem_addr(Ds + tc::bt_row(lane) * LD + tc::bt_col(lane));
+  const uint32_t qk_frag = tc::smem_addr(Qs + tc::bk_row(lane) * LD + tc::bk_col(lane));
+  const uint32_t dok_frag = tc::smem_addr(Ds + tc::bk_row(lane) * LD + tc::bk_col(lane));
+  constexpr uint32_t kStage = BQ * LD * sizeof(bf16);
+  const float sl2 = p.scale * kLog2e;
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) stage_q(it + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const int q_start = (qt0 + it % per) * BQ;
+    const bool edge = kv_lo + 16 > p.sk || (p.causal && kv_lo + 15 > q_start);
+    const uint32_t qo = st * kStage;
+    const float* lse = Ls + st * BQ;
+    const float* dlt = Es + st * BQ;
+
+#pragma unroll 1
+    for (int q0 = 0; q0 < BQ; q0 += NQ) {
+      float s[NN][4], dp[NN][4];
+#pragma unroll
+      for (int j = 0; j < NN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4];
+        tc::ldmatrix_x4(a, k_frag + kk * 32);
+#pragma unroll
+        for (int np = 0; np < NN / 2; ++np) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4(bf, qn_frag + qo + ((q0 + np * 16) * LD + kk * 16) * 2);
+          tc::mma_bf16(s[2 * np], a, bf[0], bf[1]);
+          tc::mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+        }
+        tc::ldmatrix_x4(a, v_frag + kk * 32);
+#pragma unroll
+        for (int np = 0; np < NN / 2; ++np) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4(bf, don_frag + qo + ((q0 + np * 16) * LD + kk * 16) * 2);
+          tc::mma_bf16(dp[2 * np], a, bf[0], bf[1]);
+          tc::mma_bf16(dp[2 * np + 1], a, bf[2], bf[3]);
+        }
+      }
+
+      // P^T (rows kv, columns q) from the q rows' lse, then dS^T in place
+      // of dP^T.
+#pragma unroll
+      for (int j = 0; j < NN; ++j) {
+        const int c = q0 + j * 8 + 2 * t4;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dlt + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x, dq_ = (e & 1) ? d2.y : d2.x;
+          float pr = exp2f(fmaf(s[j][e], sl2, -lq * kLog2e));
+          if (edge) {
+            const int kv = kv_lo + g + 8 * (e >> 1), q = q_start + c + (e & 1);
+            if (!(kv < p.sk && (!p.causal || kv <= q))) pr = 0.f;
+          }
+          s[j][e] = pr;
+          dp[j][e] = pr * (dp[j][e] - dq_);
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q, both rounded to bf16 and repacked in
+      // registers; the pass's q columns are the products' k dim.
+#pragma unroll
+      for (int kk = 0; kk < NN / 2; ++kk) {
+        uint32_t a[4];
+        tc::acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dn = 0; dn < ND / 2; ++dn) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4_trans(bf, dok_frag + qo + ((q0 + kk * 16) * LD + dn * 16) * 2);
+          tc::mma_bf16(dv[2 * dn], a, bf[0], bf[1]);
+          tc::mma_bf16(dv[2 * dn + 1], a, bf[2], bf[3]);
+        }
+        tc::acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int dn = 0; dn < ND / 2; ++dn) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4_trans(bf, qk_frag + qo + ((q0 + kk * 16) * LD + dn * 16) * 2);
+          tc::mma_bf16(dk[2 * dn], a, bf[0], bf[1]);
+          tc::mma_bf16(dk[2 * dn + 1], a, bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // Each warp reads only its own rows of Ks and Vs, so it writes its dK and
+  // dV rows there (once the k and v tiles have landed, if no q tile did).
+  tc::cp_async_wait<0>();
+  __syncwarp();
+  bf16* k_tile = Ks + warp * 16 * LD;
+  bf16* v_tile = Vs + warp * 16 * LD;
+  frag_to_smem<D>(k_tile, dk, p.scale, g, t4);
+  frag_to_smem<D>(v_tile, dv, 1.f, g, t4);
+  __syncwarp();
+  store_rows<D>(dkb, p.ss[kDK], k_tile, kv_lo, p.sk, lane);
+  store_rows<D>(dvb, p.ss[kDV], v_tile, kv_lo, p.sk, lane);
+}
+
+// --------------------------------------------------------------------------
 // Launch
 // --------------------------------------------------------------------------
 
@@ -468,8 +932,8 @@ struct Query {
   int* smem_bytes;
 };
 
-template <typename Kernel>
-int run(Kernel kernel, const Params& p, int smem, cudaStream_t stream, const Query* query) {
+template <typename Kernel, typename P>
+int run(Kernel kernel, const P& p, dim3 grid, int smem, cudaStream_t stream, const Query* query) {
   // Above 48 KB a block needs the opt-in; set it on every call, it is cheap.
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
@@ -478,18 +942,23 @@ int run(Kernel kernel, const Params& p, int smem, cudaStream_t stream, const Que
     return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(query->blocks_per_sm, kernel,
                                                              kThreads, smem));
   }
-  const dim3 grid((p.sq + BQ - 1) / BQ, p.hq, p.batch);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
 
+// The kernels a C entry or an occupancy query selects.
+enum Which { kServing, kTrainForward, kDq, kDkdv };
+
 template <int D>
 int launch(const Params& p, int dtype, bool aligned, cudaStream_t stream, const Query* query) {
+  const dim3 grid((p.sq + BQ - 1) / BQ, p.hq, p.batch);
   if (dtype == 0)
-    return run(flash_fwd_f32_kernel<D>, p, int(smem_floats<D>() * sizeof(float)), stream, query);
+    return run(flash_fwd_f32_kernel<D>, p, grid, int(smem_floats<D>() * sizeof(float)), stream,
+               query);
   if (dtype != 1) return kUnsupported;
-  return aligned ? run(flash_fwd_bf16_kernel<D, true>, p, bf16_smem_bytes<D>(), stream, query)
-                 : run(flash_fwd_bf16_kernel<D, false>, p, bf16_smem_bytes<D>(), stream, query);
+  return aligned
+             ? run(flash_fwd_bf16_kernel<D, true>, p, grid, bf16_smem_bytes<D>(), stream, query)
+             : run(flash_fwd_bf16_kernel<D, false>, p, grid, bf16_smem_bytes<D>(), stream, query);
 }
 
 int dispatch_dim(const Params& p, int dtype, int d, bool aligned, cudaStream_t stream,
@@ -503,6 +972,38 @@ int dispatch_dim(const Params& p, int dtype, int d, bool aligned, cudaStream_t s
   }
 }
 
+// Training's kernels: the forward with lse, or the backward's dQ kernel and
+// then its dK/dV kernel (with `query` set, the one `kernel` names).
+template <int D>
+int launch_train(int kernel, const Params& p, const BwdParams& bp, cudaStream_t stream,
+                 const Query* query) {
+  if (kernel == kTrainForward) {
+    const dim3 grid((p.sq + BQ - 1) / BQ, p.hq, p.batch);
+    return run(flash_fwd_bf16_kernel<D, true, true>, p, grid, bf16_smem_bytes<D>(), stream,
+               query);
+  }
+  const int smem = bwd_smem_bytes<D>();
+  if (query == nullptr || kernel == kDq) {
+    const dim3 grid((bp.sq + BQ - 1) / BQ, bp.hq, bp.batch);
+    const int err = run(flash_bwd_dq_kernel<D>, bp, grid, smem, stream, query);
+    if (err != 0 || query != nullptr) return err;
+  }
+  const dim3 grid((bp.sk + BK - 1) / BK, bp.hkv, bp.batch);
+  return run(flash_bwd_dkdv_kernel<D>, bp, grid, smem + 4 * BQ * int(sizeof(float)), stream,
+             query);
+}
+
+int dispatch_train(int kernel, int d, const Params& p, const BwdParams& bp, cudaStream_t stream,
+                   const Query* query = nullptr) {
+  switch (d) {
+    case 64: return launch_train<64>(kernel, p, bp, stream, query);
+    case 128: return launch_train<128>(kernel, p, bp, stream, query);
+    default: return kUnsupported;
+  }
+}
+
+// Whether a tensor's base and its first `n` strides (elements of 2 bytes)
+// keep every row start 16-byte aligned, as cp.async needs.
 bool aligned16(const void* ptr, const long long* strides, int n) {
   if (reinterpret_cast<uintptr_t>(ptr) % 16) return false;
   for (int i = 0; i < n; ++i)
@@ -510,18 +1011,11 @@ bool aligned16(const void* ptr, const long long* strides, int n) {
   return true;
 }
 
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 float32, 1 bfloat16. strides: 12 element strides, (batch, head,
-// sequence) for q, k, v and o in that order; the head dim has stride 1.
-// Returns 0 on a successful launch, a cudaError_t code, or -1 for a dtype or
-// head dim that is not compiled.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
-                        int batch, int hq, int hkv, int sq, int sk, int d,
-                        const long long* strides, float scale, int causal, void* stream) {
-  Params p;
+// Params from the C entries' arguments: 12 element strides, (batch, head,
+// sequence) for q, k, v and o in that order; no lse.
+Params make_params(const void* q, const void* k, const void* v, void* o, int batch, int hq,
+                   int hkv, int sq, int sk, const long long* strides, float scale, int causal) {
+  Params p{};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -537,24 +1031,97 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   p.sk = sk;
   p.causal = causal;
   p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 bfloat16. strides: 12 element strides, (batch, head,
+// sequence) for q, k, v and o in that order; the head dim has stride 1.
+// Returns 0 on a successful launch, a cudaError_t code, or -1 for a dtype or
+// head dim that is not compiled.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
+                        int batch, int hq, int hkv, int sq, int sk, int d,
+                        const long long* strides, float scale, int causal, void* stream) {
+  const Params p = make_params(q, k, v, o, batch, hq, hkv, sq, sk, strides, scale, causal);
   // cp.async needs 16-byte-aligned sources: every q, k, v row start.
   const bool aligned = aligned16(q, strides, 3) && aligned16(k, strides + 3, 3) &&
                        aligned16(v, strides + 6, 3);
   return dispatch_dim(p, dtype, d, aligned, static_cast<cudaStream_t>(stream));
 }
 
-// The dynamic shared memory of the kernel that (dtype, d, aligned) selects
-// and how many of its CTAs fit on one SM. Returns 0 or an error code as
-// flash_attention_fwd does.
-int flash_attention_occupancy(int dtype, int d, int aligned, int* blocks_per_sm,
+// Training's bf16 forward, which also writes each row's log-sum-exp.
+// strides as flash_attention_fwd's; `lse` (B, Hq, Sq rounded up to 64)
+// contiguous fp32. Returns as flash_attention_fwd does, or -2 for a row
+// start that is not 16-byte aligned.
+int flash_attention_train_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int batch, int hq, int hkv, int sq, int sk, int d,
+                              const long long* strides, float scale, int causal, void* stream) {
+  Params p = make_params(q, k, v, o, batch, hq, hkv, sq, sk, strides, scale, causal);
+  p.lse = lse;
+  p.lse_rows = (sq + BQ - 1) / BQ * BQ;
+  if (!(aligned16(q, strides, 3) && aligned16(k, strides + 3, 3) && aligned16(v, strides + 6, 3)))
+    return kUnaligned;
+  return dispatch_train(kTrainForward, d, p, BwdParams{}, static_cast<cudaStream_t>(stream));
+}
+
+// The backward: dq, dk, dv (each in its input's shape) from q, k, v, o, dout
+// and the forward's lse; `delta` (the shape of lse) is scratch that the
+// first kernel writes and the second reads. strides: 24 element strides,
+// (batch, head, sequence) for q, k, v, o, dout, dq, dk, dv in that order.
+// Returns as flash_attention_train_fwd does.
+int flash_attention_train_bwd(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const float* lse, float* delta, void* dq,
+                              void* dk, void* dv, int batch, int hq, int hkv, int sq, int sk,
+                              int d, const long long* strides, float scale, int causal,
+                              void* stream) {
+  BwdParams p{};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.o = static_cast<const bf16*>(o);
+  p.dout = static_cast<const bf16*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = static_cast<bf16*>(dq);
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  const void* ptrs[kTensors] = {q, k, v, o, dout, dq, dk, dv};
+  for (int i = 0; i < kTensors; ++i) {
+    p.sb[i] = strides[3 * i];
+    p.sh[i] = strides[3 * i + 1];
+    p.ss[i] = strides[3 * i + 2];
+    if (!aligned16(ptrs[i], strides + 3 * i, 3)) return kUnaligned;
+  }
+  p.batch = batch;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.group = hq / hkv;
+  p.sq = sq;
+  p.sk = sk;
+  p.rows = (sq + BQ - 1) / BQ * BQ;
+  p.causal = causal;
+  p.scale = scale;
+  return dispatch_train(kDq, d, Params{}, p, static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory of the kernel that `kernel` (0 serving's
+// forward, at `dtype` and `aligned`; 1 training's forward; 2 the dQ kernel;
+// 3 the dK/dV kernel) and `d` select, and how many of its CTAs fit on one
+// SM. Returns 0 or an error code as flash_attention_fwd does.
+int flash_attention_occupancy(int kernel, int dtype, int d, int aligned, int* blocks_per_sm,
                               int* smem_bytes) {
-  const Params p{};
   const Query query{blocks_per_sm, smem_bytes};
-  return dispatch_dim(p, dtype, d, aligned != 0, nullptr, &query);
+  if (kernel == kServing) return dispatch_dim(Params{}, dtype, d, aligned != 0, nullptr, &query);
+  if (kernel < kTrainForward || kernel > kDkdv || dtype != 1) return kUnsupported;
+  return dispatch_train(kernel, d, Params{}, BwdParams{}, nullptr, &query);
 }
 
 const char* flash_attention_error_string(int code) {
   if (code == kUnsupported) return "dtype or head dim not compiled";
+  if (code == kUnaligned) return "a row start is not 16-byte aligned";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

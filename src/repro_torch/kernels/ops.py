@@ -20,11 +20,15 @@ raises:
   its plain paths too: its model code never calls its Pallas kernels;
 - a CUDA tensor: the kernel; a CPU tensor: its plain version.
 
-Both kernels are forward only, as the Pallas kernels they replace are: a
-launch returns tensors with no autograd history. So a CUDA input that
-requires grad while grad mode is on raises rather than silently cutting
-the graph; training takes the plain paths (`models.layers._attn_core`,
-`models.ssd.ssd_chunked`), as the JAX package's training does."""
+`flash_attention` and `ssd_scan` are forward only, as the Pallas kernels
+they replace are: a launch returns tensors with no autograd history. So a
+CUDA input that requires grad while grad mode is on raises rather than
+silently cutting the graph. `flash_attention_train` is attention with a
+backward: on CUDA a `torch.autograd.Function` whose forward and backward
+are kernels, elsewhere the plain version under autograd. Training's
+attention takes it where the model code finds the call fits
+(`models.layers.attention_context`) and `_attn_core` otherwise; the Mamba
+mixer trains through the plain `models.ssd.ssd_chunked`."""
 
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 def needs_grad(*tensors: torch.Tensor | None) -> bool:
     """Whether autograd records an op on these inputs: such a call must take
-    a plain path, since the kernels are forward only."""
+    a plain path or `flash_attention_train`, since the other entries are
+    forward only."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
@@ -146,6 +151,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    raise ValueError(f"no flash attention for device {q.device}")
+
+
+def flash_train_fits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether `flash_attention_train` runs q, k, v on the training kernels:
+    bf16 CUDA tensors (`DTensor`s included) at a head dim they compile."""
+    return (q.is_cuda and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] in _fa.TRAIN_HEAD_DIMS)
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """Attention differentiable in q, k and v. q: (B, Hq, Sq, D); k/v: (B,
+    Hkv, Sk, D) -> (B, Hq, Sq, D), with the top-left causal mask. On CUDA the
+    training kernels (for inputs that `flash_train_fits`; others raise); on
+    CPU and ``meta`` the plain version, whose backward is autograd's."""
+    if isinstance(q, DTensor):
+        return _on_shards(lambda a, b, c: flash_attention_train(a, b, c, causal=causal,
+                                                                scale=scale),
+                          "flash_attention_train", [q, k, v], [0, 0, 0], [1, 1, 1], [(0, 1)])
+    if q.device.type in ("cpu", "meta"):
+        return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if q.is_cuda:
+        return _fa.flash_attention_train_cuda(q, k, v, causal=causal, scale=scale)
     raise ValueError(f"no flash attention for device {q.device}")
 
 

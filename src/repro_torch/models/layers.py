@@ -7,10 +7,13 @@ is (Hq, D_h, d). Matmuls run in bf16 on fp32 parameters cast at use, with
 fp32 norm, softmax and score accumulation. Self-attention of a query block
 at position 0 against an empty or absent cache (causal prefill, or the
 encoder's non-causal pass) with no input that needs a gradient goes through
-`ops.flash_attention` (the flash kernel for CUDA tensors, forward only);
-every other case, training and cross-attention included, through the plain
-`_attn_core`, differentiable by autograd. The Mamba mixer is in
-``models/ssd.py``.
+`ops.flash_attention` (the flash kernel for CUDA tensors, forward only). A
+call that needs gradients goes through `ops.flash_attention_train` (the
+flash kernel with its backward) where `trains_through_flash` finds that it
+fits: bf16 on CUDA, no cache from position 0, head dim 64 or 128, whole
+(batch, head) slices on every rank. Every other case, on the CPU and in the
+dry-run's ``meta`` tensors included, goes through the plain `_attn_core`,
+differentiable by autograd. The Mamba mixer is in ``models/ssd.py``.
 
 Under a mesh (`sharding.rules.use_rules` with a mesh) the same code runs on
 `DTensor`s and lays activations out where the reference's `constrain`
@@ -736,18 +739,28 @@ def attention_context(
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
 
-    # The kernel is forward only: a call that needs gradients (training)
-    # takes the plain path, as the JAX package's training does. Under a
-    # mesh it takes only layouts with whole (batch, head) slices on every
-    # rank: the kv_seq mode's k/v over one rank at most.
-    if (prefill and not ops.needs_grad(q, k, v) and _kv_seq_whole(k.shape[1])
+    # Training's calls that fit go through the flash kernel with its
+    # backward; serving's prefill through the forward-only one. Under a mesh
+    # both take only layouts with whole (batch, head) slices on every rank:
+    # head mode, or the kv_seq mode's k/v over one rank at most.
+    if trains_through_flash(q, k, v, cache=cache, start=start, head_mode=head_mode):
+        entry = ops.flash_attention_train
+    elif (prefill and not ops.needs_grad(q, k, v) and _kv_seq_whole(k.shape[1])
             and not head_mode):
-        k = constrain(k, "batch", "kv_seq", None, None)
-        v = constrain(v, "batch", "kv_seq", None, None)
-        # (B, S, H, D) -> (B, H, S, D) strided views; the kernel writes its
+        entry = ops.flash_attention
+    else:
+        entry = None
+    if entry is not None:
+        if head_mode:
+            q, k, v = (constrain(t, "batch", None, "heads", None) for t in (q, k, v))
+        else:
+            k = constrain(k, "batch", "kv_seq", None, None)
+            v = constrain(v, "batch", "kv_seq", None, None)
+        # (B, S, H, D) -> (B, H, S, D) strided views, GQA's groups not
+        # expanded (head h reads kv head h // g); the kernels write their
         # output in q's memory layout, so the transpose back is free.
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal).transpose(1, 2)
+        out = entry(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal and kv_source is None).transpose(1, 2)
     else:
         # Cache-backed paths (prefill/decode) keep the serving KV layout
         # (kv_seq-sharded); the head-sharded mode serves training and
@@ -757,6 +770,21 @@ def attention_context(
                          head_mode=head_mode)
     wo = merge_dims(p["wo"].to(x.dtype), 0, 1)
     return _contraction_split(_context_for_wo(out), wo), wo, new_cache
+
+
+def trains_through_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         cache: KVCache | None, start: int, head_mode: bool) -> bool:
+    """Whether an attention call of q (B, S_q, H_q, D), k, v (B, S_k, H_kv,
+    D) goes through the flash kernel with its backward
+    (`ops.flash_attention_train`): gradients are needed; the tensors are
+    bf16 on CUDA; no cache and queries from position 0; a head dim the
+    kernels compile; every rank holds whole (batch, head) slices (head mode,
+    or k/v whole along the sequence). Every other call takes `_attn_core`
+    as it was: the CPU, the dry-run's ``meta`` tensors, fp32 activations,
+    kv_seq-split layouts, serving."""
+    return (ops.needs_grad(q, k, v) and ops.flash_train_fits(q, k, v)
+            and cache is None and start == 0
+            and (head_mode or _kv_seq_whole(k.shape[1])))
 
 
 def attention_output(p: dict, y: torch.Tensor) -> torch.Tensor:

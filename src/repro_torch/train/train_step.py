@@ -1,8 +1,9 @@
 """Train-step builder: loss -> grads -> AdamW, with optional microbatch
 gradient accumulation, as the JAX package's ``train/train_step.py``.
 
-The forward and backward passes are plain PyTorch autograd (the
-hand-written kernels are forward only and are not on this path); the
+The forward and backward passes are PyTorch autograd: plain ops, and on
+the card the flash attention kernel with its backward where the model
+code finds the call fits (`models.layers.trains_through_flash`); the
 gradients of the parameter leaves come from `torch.autograd.grad`. The
 step keeps its metrics on the device, so it never waits for the card.
 While a profiler session runs, the step and its phases are spans

@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.models import make_model
 
@@ -151,6 +153,161 @@ def test_prefill_launches_once_per_layer_and_decode_never(cuda):
     assert fa.launches == 2 * cfg.num_layers
     torch.testing.assert_close(logits[:, : cfg.vocab_size], full[:, : cfg.vocab_size],
                                rtol=0.15, atol=0.15)
+
+
+# --------------------------------------------------------------------------- #
+# Flash attention for training: the forward with lse, and the backward
+# --------------------------------------------------------------------------- #
+TRAIN_CASES = [
+    # (b, hq, hkv, sq, sk, d, causal): olmo-1b's heads at its context, causal;
+    # smollm-135m's GQA (groups of 3) at D 64; whisper-large-v3's encoder,
+    # unmasked, whose last 64-row tile holds 28 rows; and its decoder's
+    # cross-attention, 448 queries against 1,500 frames.
+    (2, 16, 16, 2048, 2048, 128, True),
+    (2, 9, 3, 512, 512, 64, True),
+    (2, 20, 20, 1500, 1500, 64, False),
+    (2, 20, 20, 448, 1500, 64, False),
+]
+# bf16 has 8 significant bits (relative rounding up to 2^-9 = 1.95e-3): the
+# kernels round q, k, v and dO as the inputs are, and P and dS before their
+# products, and the outputs once. Each result is held to the plain version
+# in fp32 on the same bf16 inputs (autograd's exact gradient of them) by a
+# relative L2 error of 1e-2, five roundings' worth, and elementwise to
+# 2e-2 of the tensor's largest value (the bf16 limit of the forward's
+# tests). The log-sum-exp is fp32 throughout, so 1e-4 absolute.
+TRAIN_REL, TRAIN_ELEM, LSE_TOL = 1e-2, 2e-2, 1e-4
+
+
+def _train_inputs(case, seed, device):
+    q, k, v = _inputs((*case, torch.bfloat16), seed, device)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.from_numpy(rng.standard_normal(q.shape, dtype=np.float32)).to(device, q.dtype)
+    return q, k, v, dout
+
+
+def _plain_train(q, k, v, dout, causal):
+    """The plain version's output, lse and gradients in fp32 on the card."""
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention_plain(q32, k32, v32, causal=causal)
+    out.backward(dout.float())
+    g = q.shape[1] // k.shape[1]
+    s = q.float() @ k.float().repeat_interleave(g, 1).transpose(-1, -2) * q.shape[-1] ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones_like(s, dtype=torch.bool).triu(1), float("-inf"))
+    return out.detach(), torch.logsumexp(s, dim=-1), q32.grad, k32.grad, v32.grad
+
+
+def _close_rel(got, want, what):
+    got, want = got.float(), want.float()
+    rel = ((got - want).norm() / want.norm()).item()
+    worst = (got - want).abs().max().item()
+    assert rel <= TRAIN_REL, f"{what}: relative L2 error {rel:.3e}"
+    assert worst <= TRAIN_ELEM * want.abs().max().item(), f"{what}: max |diff| {worst:.3e}"
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=[str(c) for c in TRAIN_CASES])
+def test_train_kernels_match_plain_autograd(cuda, case):
+    causal = case[6]
+    q, k, v, dout = _train_inputs(case, 20, cuda)
+    o, lse = fa.flash_attention_train_fwd_cuda(q, k, v, causal=causal)
+    dq, dk, dv = fa.flash_attention_train_bwd_cuda(q, k, v, o, lse, dout, causal=causal)
+    want_o, want_lse, want_dq, want_dk, want_dv = _plain_train(q, k, v, dout, causal)
+    torch.cuda.synchronize()
+    sq = q.shape[2]
+    assert lse.shape == (q.shape[0], q.shape[1], -(-sq // 64) * 64)
+    assert bool(torch.isinf(lse[..., sq:]).all())
+    torch.testing.assert_close(lse[..., :sq], want_lse, rtol=0, atol=LSE_TOL)
+    for what, got, want in (("o", o, want_o), ("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape, what
+        _close_rel(got, want, what)
+
+
+def test_train_entry_under_autograd_matches_the_kernels(cuda):
+    """`ops.flash_attention_train` on CUDA tensors is the autograd function
+    of the two launches: its output and q/k/v gradients are the kernels'
+    own, bit for bit."""
+    q, k, v, dout = _train_inputs((2, 9, 3, 200, 200, 64, True), 21, cuda)
+    o, lse = fa.flash_attention_train_fwd_cuda(q, k, v)
+    want = (o, *fa.flash_attention_train_bwd_cuda(q, k, v, o, lse, dout))
+    live = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention_train(*live)
+    out.backward(dout)
+    for got, ref in zip((out, *(t.grad for t in live)), want):
+        assert torch.equal(got, ref)
+
+
+def test_train_backward_is_deterministic(cuda):
+    """No atomics: two backward calls give the same bits."""
+    q, k, v, dout = _train_inputs((2, 9, 3, 512, 512, 64, True), 22, cuda)
+    o, lse = fa.flash_attention_train_fwd_cuda(q, k, v)
+    first = fa.flash_attention_train_bwd_cuda(q, k, v, o, lse, dout)
+    second = fa.flash_attention_train_bwd_cuda(q, k, v, o, lse, dout)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_train_launch_counters_count_launches_only(cuda):
+    q, k, v, dout = _train_inputs((1, 2, 2, 64, 64, 64, True), 23, cuda)
+    fa.launches = fa.backward_launches = 0
+    live = [t.detach().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention_train(*live).backward(dout)
+    o, lse = fa.flash_attention_train_fwd_cuda(q, k, v)
+    fa.flash_attention_train_bwd_cuda(q, k, v, o, lse, dout)
+    fa.flash_attention_plain(*live).backward(dout)
+    ops.flash_attention_train(*(t.cpu().requires_grad_() for t in (q, k, v)))
+    assert (fa.launches, fa.backward_launches) == (2, 2)
+
+
+def test_serving_forward_is_bit_equal_to_the_training_forward(cuda):
+    """The serving call (no lse) and the training forward run one kernel
+    template: writing lse leaves the output's bits as they were."""
+    for case in ((8, 16, 16, 512, 512, 128, True), (2, 20, 20, 1500, 1500, 64, False)):
+        q, k, v = _inputs((*case, torch.bfloat16), 24, cuda)
+        served = fa.flash_attention_cuda(q, k, v, causal=case[6])
+        trained, _ = fa.flash_attention_train_fwd_cuda(q, k, v, causal=case[6])
+        assert torch.equal(served, trained)
+
+
+def test_train_rejects_what_the_kernels_do_not_take(cuda):
+    q, k, v = _inputs((1, 2, 2, 64, 64, 64, True, torch.float32), 25, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.flash_attention_train(q, k, v)
+    q, k, v = (t.bfloat16() for t in (q, k, v))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_train(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.flash_attention_train(q, k.cpu(), v)
+
+
+def test_olmo_train_step_launches_two_forwards_and_one_backward_a_layer(cuda, monkeypatch):
+    """Full-width olmo-1b cut to 2 layers, bf16 activations, remat: a
+    layer's attention runs its forward kernel twice (the forward and the
+    period's recompute) and its backward once. Its loss and each leaf's
+    gradient norm are those of the plain path (the kernel's P and dS in
+    bf16 against the plain path's fp32): the loss to 1e-3 relative, each
+    leaf's gradient norm to 1e-2 relative."""
+    cfg = dataclasses.replace(get_config("olmo-1b"), num_layers=2)
+    model = make_model(cfg)
+    params = model.init(0, device=cuda)
+    rng = np.random.default_rng(26)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1025))).to(cuda)
+
+    def loss_and_norms():
+        live = tree.map_leaves(lambda t: t.detach().requires_grad_(True), params)
+        loss = model.loss(live, {"inputs": ids[:, :-1], "labels": ids[:, 1:]}, remat=True)
+        grads = torch.autograd.grad(loss, tree.flatten(live))
+        return loss.item(), [g.float().norm().item() for g in grads]
+
+    fa.launches = fa.backward_launches = 0
+    loss, norms = loss_and_norms()
+    assert (fa.launches, fa.backward_launches) == (2 * cfg.num_layers, cfg.num_layers)
+    monkeypatch.setattr(L, "trains_through_flash", lambda *a, **kw: False)
+    want_loss, want_norms = loss_and_norms()
+    assert (fa.launches, fa.backward_launches) == (2 * cfg.num_layers, cfg.num_layers)
+    assert loss == pytest.approx(want_loss, rel=1e-3)
+    for got, want in zip(norms, want_norms):
+        assert got == pytest.approx(want, rel=1e-2)
 
 
 # --------------------------------------------------------------------------- #

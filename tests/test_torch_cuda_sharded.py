@@ -4,7 +4,8 @@ to the CUDA kernels (one launch each) and match their plain versions; a
 split over one rank counts as whole. Training on the mesh: the scan that
 needs gradients runs `ssd_chunked` through `local_map` (no launch) with
 the plain path's values and gradients, the kernel's entry still refuses a
-`DTensor` that needs grad, and a reduced olmo-1b train step through the
+`DTensor` that needs grad, the flash training kernels take `DTensor`s that
+need grad through `local_map`, and a reduced olmo-1b train step through the
 `DTensor` path equals the plain step at 1 and 2 microbatches.
 
 Every test here needs an NVIDIA GPU and skips without one; the file imports
@@ -102,6 +103,32 @@ def test_a_split_over_one_rank_counts_as_whole(nccl):
                                   place(q, mesh, Shard(0), Shard(2)),
                                   place(q, mesh, Shard(0), Shard(2)))
     assert fa.launches == before + 1 and out.shape == q.shape
+
+
+def test_training_flash_through_local_map(nccl):
+    """`ops.flash_attention_train` on bf16 `DTensor`s that need grad (olmo-1b's
+    heads, batch 2 of 512, split on batch and heads): one forward and one
+    backward launch through `local_map`, the output and the gradients of
+    q, k and v bit for bit those of the plain tensors through the kernels."""
+    mesh = make_debug_mesh(1, 1)
+    gen = torch.Generator(device=nccl).manual_seed(4)
+    q, k, v, dout = (torch.randn(2, 16, 512, 128, device=nccl, generator=gen).bfloat16()
+                     for _ in range(4))
+    pl = (Shard(0), Shard(1))
+
+    def run(inputs, grad):
+        live = [t.detach().requires_grad_(True) for t in inputs]
+        out = ops.flash_attention_train(*live)
+        out.backward(grad)
+        full = [out] + [t.grad for t in live]
+        return [t.full_tensor() if isinstance(t, DTensor) else t for t in full]
+
+    before = (fa.launches, fa.backward_launches)
+    got = run([place(t, mesh, *pl) for t in (q, k, v)], place(dout, mesh, *pl))
+    assert (fa.launches, fa.backward_launches) == (before[0] + 1, before[1] + 1)
+    want = run([q, k, v], dout)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_training_scan_through_local_map(nccl):

@@ -1,5 +1,7 @@
 """Training on the card: the forward-only kernels refuse inputs that need a
-gradient, training launches neither kernel while serving still does, a
+gradient, training at the reduced configs' head dim 16 (which the flash
+training kernels do not compile) launches neither kernel while serving
+still does, a
 train step on the card matches the same step on the host CPU, and the
 device feeder's copies on its side stream are ordered before the
 consumer's use of each batch.

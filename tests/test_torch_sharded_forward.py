@@ -9,10 +9,11 @@ under each rules table, in fp32 activations: the loss, every leaf's
 gradient, a prefill and two decode steps must equal the same calls with no
 mesh within 1e-4 (|a - b| <= 1e-4 * (1 + |b|)). The same world calls the
 kernels' entries on DTensors: whole layouts go through `local_map` and
-equal the plain version; a sequence-sharded layout raises; and one train
-step of reduced granite-moe-3b-a800m equals the step with no mesh. The MoE and
-Mamba configs run in tests/test_torch_sharded_forward_mixers.py, a world
-of their own.
+equal the plain version, the training entry's gradients included; a
+sequence-sharded layout raises; and one train step of reduced
+granite-moe-3b-a800m equals the step with no mesh. The MoE and Mamba
+configs run in tests/test_torch_sharded_forward_mixers.py, a world of
+their own.
 
 In this process: head-mode `_attn_core` against the reference's on one
 rank, in fp32 and bf16, and the entries' ``meta`` route. The layout calls,
@@ -103,6 +104,20 @@ def test_ops_whole_layouts_run_on_local_shards(gloo_world, kernel, name):
         assert placements == ["R", "R"]
     else:
         assert placements == ["S(0)", "S(1)" if kernel == "flash" else "S(2)"]
+
+
+@pytest.mark.parametrize("name", ["batch_heads", "kv_replicated"])
+def test_train_entry_on_split_heads_carries_gradients(gloo_world, name):
+    """`ops.flash_attention_train` under autograd with q's heads split on
+    ``model`` (and the batch on ``data``), k/v split alike or, of one kv
+    head, replicated (their gradient a partial sum across the head ranks):
+    the output keeps q's layout, and the output and the q, k and v
+    gradients equal the plain tensors' within 1e-5 (the partial sums add in
+    another order)."""
+    got = gloo_world["ops"][f"train_{name}"]
+    assert got["rel"] <= 1e-5
+    assert got["placements"] == ["S(0)", "S(1)"]
+    assert got["grads"] == [True, True, True]
 
 
 @pytest.mark.parametrize("kernel", ["flash", "ssd"])

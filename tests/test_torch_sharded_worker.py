@@ -152,7 +152,9 @@ def ops_checks(mesh) -> dict:
     """`ops.flash_attention` and `ops.ssd_scan` on DTensors: whole layouts
     go through `local_map` to the plain version on each rank's shard and
     must equal the plain version on the logical inputs; a layout split on
-    a sequence dim raises."""
+    a sequence dim raises. `ops.flash_attention_train` under autograd on
+    heads split across ranks, with k/v split alike or, of one kv head,
+    replicated: its output and q/k/v gradients against the plain tensors'."""
     from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.kernels import flash_attention as fa
@@ -168,6 +170,7 @@ def ops_checks(mesh) -> dict:
     b = torch.randn(8, 64, 1, 16, generator=gen)
     c = torch.randn(8, 64, 1, 16, generator=gen)
     init = torch.randn(8, 4, 16, 16, generator=gen)
+    dout = torch.randn(8, 4, 64, 16, generator=gen)
     want_fa = fa.flash_attention_plain(q, k, v, causal=True)
     want_y, want_h = ssd.ssd_scan_plain(x, dt_a, b, c, chunk=32, initial_state=init)
 
@@ -188,6 +191,21 @@ def ops_checks(mesh) -> dict:
         out[f"ssd_{name}"] = [max(float((y.full_tensor() - want_y).abs().max()),
                                   float((h.full_tensor() - want_h).abs().max())),
                               [str(p) for p in y.placements]]
+    train_layouts = {"batch_heads": ([Shard(0), Shard(1)], k, v),
+                     "kv_replicated": ([Shard(0), Replicate()], k[:, :1], v[:, :1])}
+    for name, (kv_pl, kk, vv) in train_layouts.items():
+        plain = [t.clone().requires_grad_() for t in (q, kk, vv)]
+        want = ops.flash_attention_train(*plain, causal=True)
+        want.backward(dout)
+        live = [place(t, pl).requires_grad_()
+                for t, pl in ((q, [Shard(0), Shard(1)]), (kk, kv_pl), (vv, kv_pl))]
+        got = ops.flash_attention_train(*live, causal=True)
+        got.backward(place(dout, list(got.placements)))
+        errs = [diff(got.full_tensor().detach(), want.detach())[1]]
+        errs += [diff(t.grad.full_tensor(), w.grad)[1] for t, w in zip(live, plain)]
+        out[f"train_{name}"] = {"rel": max(errs),
+                                "placements": [str(p) for p in got.placements],
+                                "grads": [isinstance(t.grad, DTensor) for t in live]}
     from repro_torch.train.train_step import _split_batch
 
     rows = torch.arange(16 * 3).reshape(16, 3)
